@@ -3,16 +3,14 @@
 # the Python/JAX engine.  "Building" here = editable install + native codec.
 
 PY ?= python
-REF ?= /root/reference
 
-# deck selection (override like: make run DECK=256x256)
-DECK ?= 128x128
-PARAMS = $(REF)/input_$(DECK).params
-OBSTACLES = $(REF)/obstacles_$(DECK).dat
-REF_AV_VELS_FILE = $(REF)/check/$(DECK).av_vels.dat
-REF_FINAL_STATE_FILE = $(REF)/check/$(DECK).final_state.dat
+# deck selection (override like: make run DECK=256x256); decks/ holds
+# 256x256, 1024x1024 (with goldens/) and mini_64x64
+DECK ?= 1024x1024
+PARAMS = decks/$(DECK).params
+OBSTACLES = decks/$(DECK).obstacles.dat
 
-.PHONY: all native test multichip run check bench validate clean
+.PHONY: all native test multichip run check bench validate smoke clean
 
 all: native
 	$(PY) -m pip install -e . --no-deps --no-build-isolation -q
@@ -23,8 +21,7 @@ native:
 test: multichip
 	$(PY) -m pytest tests/ -x -q -m "not slow"
 
-# driver-contract smoke: the multi-chip dry run must pass in a fresh
-# process exactly the way the round driver invokes it
+# the multi-device dry run must pass in a fresh process
 multichip:
 	$(PY) -c "from __graft_entry__ import dryrun_multichip; \
 	dryrun_multichip(8); print('multichip dryrun OK')"
@@ -32,26 +29,22 @@ multichip:
 run:
 	$(PY) -m advanced_hpc_lbm_tpu $(PARAMS) $(OBSTACLES)
 
-# run `make run` first; mirrors the reference's `make check` contract
+# the reference's `make check` contract on the decks with goldens (256x256,
+# 1024x1024): run the deck through the CLI, check its final state against
+# goldens/ at 1% and its Reynolds number
 check:
-	$(PY) -m advanced_hpc_lbm_tpu.utils.check \
-	    --ref-av-vels-file=$(REF_AV_VELS_FILE) \
-	    --ref-final-state-file=$(REF_FINAL_STATE_FILE) \
-	    --av-vels-file=./av_vels.dat \
-	    --final-state-file=./final_state.dat
+	$(PY) scripts/validate_all.py --decks $(DECK)
 
-# make bench            — headline single-size JSON line (driver contract)
-# make bench MATRIX=1   — 512^2-8192^2 regression gate vs recorded BENCH.md
-bench:
-ifdef MATRIX
-	$(PY) bench.py --matrix
-else
-	$(PY) bench.py
-endif
-
-# all four decks end-to-end against the goldens (needs the TPU for speed)
 validate:
-	$(PY) scripts/validate_all.py --ref $(REF)
+	$(PY) scripts/validate_all.py
+
+# headline single-size JSON line (needs a GPU)
+bench:
+	$(PY) bench.py
+
+# the quickest proof that the solver runs on the GPU (one card)
+smoke:
+	$(PY) chip_smoke.py
 
 clean:
 	rm -f final_state.dat av_vels.dat final_state.png final_state.pgm

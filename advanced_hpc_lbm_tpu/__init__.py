@@ -1,17 +1,16 @@
-"""advanced_hpc_lbm_tpu — a TPU-native D2Q9-BGK lattice-Boltzmann engine.
+"""advanced_hpc_lbm_tpu — a D2Q9-BGK lattice-Boltzmann engine in JAX.
 
-A from-scratch JAX / XLA / Pallas re-design of the capabilities of the
-``ChuyueL/advanced-hpc-lbm`` reference solver (serial C99, see
-``/root/reference/d2q9-bgk.c``).  The compute path is a fused
-collide-and-stream step over a planes-of-speeds ``(9, ny, nx)`` fp32 array,
-iterated on-device under ``lax.scan``; large grids shard over a
-``jax.sharding.Mesh`` with ICI halo exchange (``parallel/``); file formats
-and the CLI contract are byte-compatible with the reference
-(``utils/io.py``, ``cli.py``).
+A from-scratch JAX / XLA re-design of the capabilities of the
+``ChuyueL/advanced-hpc-lbm`` reference solver (serial C99,
+``d2q9-bgk.c``).  The compute path is a fused collide-and-stream step over
+a planes-of-speeds ``(9, ny, nx)`` fp32 array, iterated on-device under
+``lax.scan``; large grids shard over a ``jax.sharding.Mesh`` with a
+ring halo exchange (``parallel/``); file formats and the CLI contract are
+byte-compatible with the reference (``utils/io.py``, ``cli.py``).
 
 Layout:
   models/    — the simulation "model": state container + end-to-end run
-  ops/       — lattice constants, composable ops, fused step, Pallas kernel
+  ops/       — lattice constants, composable ops (the oracle), fused step
   parallel/  — device-mesh sharding + halo exchange (shard_map/ppermute)
   utils/     — I/O codecs, validation checker, timers, viz, profiling
 """

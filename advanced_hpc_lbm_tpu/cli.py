@@ -6,8 +6,7 @@ runs the deck, prints the ``==done==`` / Reynolds / four-timer block
 (:216-221), and writes final_state.dat + av_vels.dat in the cwd.
 
 Extensions beyond the reference (all optional flags):
-  --backend   auto (default) | fused | pallas | pallas2 | pallask |
-              resident | stream | pipeline | sharded
+  --backend   auto (default, = fused) | fused | pipeline | sharded
   --debug     per-step av-velocity + total-density prints (the reference's
               #ifdef DEBUG build, d2q9-bgk.c:196-200)
   --profile   capture a jax.profiler trace of the compute phase
@@ -21,7 +20,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from advanced_hpc_lbm_tpu.models.d2q9_bgk import Simulation
+from advanced_hpc_lbm_tpu.models.d2q9_bgk import BACKENDS, Simulation
 from advanced_hpc_lbm_tpu.utils.io import DeckError
 from advanced_hpc_lbm_tpu.utils.timers import PhaseTimers
 
@@ -29,18 +28,17 @@ from advanced_hpc_lbm_tpu.utils.timers import PhaseTimers
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="advanced_hpc_lbm_tpu",
-        description="TPU-native D2Q9-BGK lattice Boltzmann solver",
+        description="D2Q9-BGK lattice Boltzmann solver (JAX/XLA)",
     )
     p.add_argument("paramfile")
     p.add_argument("obstaclefile")
     p.add_argument(
         "--backend",
         default="auto",
-        choices=[
-            "auto", "fused", "pallas", "pallas2", "pallask", "resident",
-            "stream", "pipeline", "sharded",
-        ],
-        help="auto picks resident (small grids, TPU) > pallas (TPU) > fused",
+        choices=BACKENDS,
+        help="auto is fused: the XLA-fused single-pass step on one device; "
+             "pipeline runs the 4-op reference pipeline; sharded splits the "
+             "grid over --devices N or --mesh MYxMX",
     )
     p.add_argument("--debug", action="store_true")
     p.add_argument("--profile", metavar="TRACE_DIR", default=None)
@@ -61,17 +59,6 @@ def build_parser() -> argparse.ArgumentParser:
         help="fail loudly if the run produced NaN/Inf (numerical sanitizer)",
     )
     p.add_argument(
-        "--shard-kernel", default="auto",
-        choices=["auto", "jnp", "pallas", "stream"],
-        help="local-step implementation for --backend sharded: auto "
-             "(default — the measured ladder, parallel/halo."
-             "resolve_shard_kernel: stream for DMA-bound slabs, pallas "
-             "for VMEM-window slabs, else jnp), jnp (XLA-fused), pallas "
-             "(Mosaic VMEM-window kernel), stream (HBM-streaming "
-             "manual-DMA kernel, K=8 steps/exchange — for shards whose "
-             "slab exceeds the VMEM-window sizes)",
-    )
-    p.add_argument(
         "--mesh", default=None, metavar="MYxMX",
         help="2-D torus decomposition for --backend sharded, e.g. 2x4 "
              "(rows x columns of devices)",
@@ -79,17 +66,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--ca-steps", type=int, default=1, metavar="K",
         help="steps per halo exchange on the sharded mesh "
-             "(communication-avoiding ghost zones; 1-D ring or 2-D torus; "
-             "with --shard-kernel pallas the Mosaic CA window kernel, "
-             "VMEM-gated, 1-D only)",
+             "(communication-avoiding ghost zones; 1-D ring or 2-D torus)",
     )
     p.add_argument(
         "--multihost", action="store_true",
         help="force jax.distributed.initialize() (multi-host process "
              "group).  Normally auto-detected from the environment "
-             "(JAX_COORDINATOR_ADDRESS, Slurm multi-task envs, TPU pod "
-             "metadata — parallel/multihost.py); outputs are written by "
-             "process 0 only",
+             "(JAX_COORDINATOR_ADDRESS, Slurm multi-task envs — "
+             "parallel/multihost.py); outputs are written by process 0 "
+             "only",
     )
     return p
 
@@ -111,7 +96,6 @@ def _run_sim(sim: Simulation, args):
         checkpoint_dir=args.checkpoint_dir,
         resume=args.resume,
         check_finite=args.check_finite,
-        shard_kernel=args.shard_kernel,
         mesh=mesh,
         ca_steps=args.ca_steps,
         # leave results on device: the CLI times the device->host transfer
@@ -126,8 +110,8 @@ def main(argv: list[str] | None = None) -> int:
     from advanced_hpc_lbm_tpu.parallel import multihost
     from advanced_hpc_lbm_tpu.utils import cache
 
-    # must precede the first device query of the process: on a pod slice
-    # (or Slurm multi-rank launch) this forms the jax.distributed process
+    # must precede the first device query of the process: on a Slurm
+    # multi-rank (or explicit-coordinator) launch this forms the jax.distributed process
     # group, after which jax.devices() is the GLOBAL device list and the
     # mesh builders/shard_map runners work unchanged.  Single-process
     # environments: a no-op.
@@ -148,15 +132,13 @@ def main(argv: list[str] | None = None) -> int:
             return 1
         # AOT-compile the exact executable the main loop will dispatch, so
         # the Compute timer measures compute the way the reference's does
-        # (d2q9-bgk.c:177-206) instead of swallowing multi-second remote
-        # Mosaic/XLA compiles.  The sharded path warms its own (cached)
+        # (d2q9-bgk.c:177-206) instead of swallowing the XLA compile.  The sharded path warms its own (cached)
         # runner the same way; checkpointed runs warm their first
         # segment's executable (the segment loop reuses it by length).
         try:
             sim.warmup(
                 n_iters=args.iters, debug=args.debug,
-                devices=args.devices, shard_kernel=args.shard_kernel,
-                mesh=_parse_mesh(args), ca_steps=args.ca_steps,
+                devices=args.devices, mesh=_parse_mesh(args), ca_steps=args.ca_steps,
                 checkpoint_every=args.checkpoint_every,
                 checkpoint_dir=args.checkpoint_dir,
                 resume=args.resume,
@@ -187,8 +169,8 @@ def main(argv: list[str] | None = None) -> int:
         profiler_cm.__exit__(None, None, None)
 
     with timers.phase("collate"):
-        # the TPU realization of "Collate data from ranks here"
-        # (d2q9-bgk.c:208): pull the device-resident results to host.
+        # "Collate data from ranks here" (d2q9-bgk.c:208): pull the
+        # device-resident results to host.
         # A deferred --check-finite runs on the collated arrays.
         try:
             result.collate()

@@ -6,16 +6,9 @@
                 oracle mirroring the reference's pre-fusion pipeline
                 (d2q9-bgk.c:1815-1822).
 ``fused``     — the production single-pass step (accelerate + pull-stream +
-                bounce-back + BGK collide + in-step reduction), the TPU
-                equivalent of ``timestep_new2`` (d2q9-bgk.c:228-1813).
-``kernel_common`` — the shared collide/forcing vector math of the kernels.
-``pallas_step``   — hand-tiled per-step Mosaic kernel (any tileable grid).
-``pallas_multi``  — two-steps-per-HBM-pass variant (ghost-zone tiling).
-``pallas_local``  — non-periodic shard-local kernel for the sharded path.
-``resident``      — VMEM-resident whole-run kernel for small grids.
-
-The Pallas modules import lazily (TPU-only dependencies stay off the
-critical path for CPU users).
+                bounce-back + BGK collide + in-step reduction), the
+                equivalent of ``timestep_new2`` (d2q9-bgk.c:228-1813),
+                compiled by XLA for whichever device runs it.
 """
 
 from advanced_hpc_lbm_tpu.ops import lattice

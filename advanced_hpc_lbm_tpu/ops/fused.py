@@ -1,16 +1,15 @@
-"""The production fused timestep — TPU equivalent of ``timestep_new2``.
+"""The production fused timestep — the equivalent of ``timestep_new2``.
 
 The reference hand-fused accelerate + pull-stream + bounce-back + BGK
 collide + the velocity-norm reduction into one 1585-line loop nest
 (d2q9-bgk.c:228-1813).  Here the same fusion is expressed once in ~60 lines
-of jnp and handed to XLA, which tiles it for the VPU; the whole
+of jnp and handed to XLA, which fuses it into device kernels; the whole
 ``max_iters`` loop runs on-device under ``lax.scan`` with double-buffered
-carry (the TPU analogue of the reference's pointer swap, d2q9-bgk.c:136-140,
+carry (the analogue of the reference's pointer swap, d2q9-bgk.c:136-140,
 :190) and streams one av-velocity scalar per step into the scan output
 (the ``av_vels`` history, d2q9-bgk.c:182).
 
-An even faster hand-tiled Pallas version of the same step lives in
-:mod:`advanced_hpc_lbm_tpu.ops.pallas_step`; both must agree with
+It must agree with
 :func:`advanced_hpc_lbm_tpu.ops.reference.timestep_pipeline` on every deck.
 """
 
@@ -69,6 +68,18 @@ def fused_step(
     return f_next, tot_u / n_fluid
 
 
+def pipeline_step(
+    f: jax.Array,
+    obstacles: jax.Array,
+    n_fluid: jax.Array,
+    params: LBMParams,
+) -> tuple[jax.Array, jax.Array]:
+    """The 4-op reference pipeline (reference.timestep_pipeline) with the
+    fused step's signature, for ``run_simulation(step_fn=...)``."""
+    del n_fluid
+    return reference.timestep_pipeline(f, obstacles, params)
+
+
 def make_step_fn(
     params: LBMParams, obstacles: jax.Array
 ) -> Callable[[jax.Array], tuple[jax.Array, jax.Array]]:
@@ -101,61 +112,13 @@ def run_simulation(
     """
     iters = params.max_iters if n_iters is None else n_iters
     n_fluid = jnp.sum(obstacles == 0).astype(jnp.float32)
-    # let the backend pre-convert the mask ONCE (e.g. the Pallas kernel
-    # wants int8); doing it inside the scan body would re-cast every step
-    prepare = getattr(step_fn, "prepare_obstacles", None)
-    if prepare is not None:
-        obstacles = prepare(obstacles)
 
-    def one(f):
+    def body(f, _):
         f_next, av = step_fn(f, obstacles, n_fluid, params)
         out = (av, reference.total_density(f_next)) if collect_density else av
         return f_next, out
 
-    if not getattr(step_fn, "opaque_custom_call", False):
-        # pure-HLO step: single-call body (XLA handles the carry without a
-        # materialized copy here, and a paired body would let per-step
-        # fusion depend on pair position — breaking the bit-exact
-        # checkpoint-restart contract on the jnp path)
-        def body(f, _):
-            return one(f)
-
-        f_final, outs = jax.lax.scan(body, f0, None, length=iters)
-        if collect_density:
-            return f_final, outs[0], outs[1]
-        return f_final, outs
-
-    # Opaque custom-call step (the Pallas kernel): TWO steps per scan
-    # iteration.  With a single call per iteration the loop-carry slot
-    # must be updated in place, which XLA can only arrange for an opaque
-    # call by inserting a FULL-STATE copy into the body — measured as
-    # +36 B/cell/step of pure waste (copy.15 in the 1024^2 trace,
-    # runs/trace_1024_summary.md).  A two-call ping-pong body needs no
-    # in-place reuse: call 1 writes a body-local temp, call 2 writes the
-    # carry slot.  The f trajectory stays bitwise stable because the
-    # kernel itself is opaque to XLA's fuser.
-    def body(f, _):
-        f_mid, out1 = one(f)
-        f_next, out2 = one(f_mid)
-        return f_next, (out1, out2)
-
-    f_final, (outs_a, outs_b) = jax.lax.scan(body, f0, None, length=iters // 2)
-
-    def interleave(a, b, tail=None):
-        seq = jnp.stack([a, b], axis=1).reshape(-1)
-        return seq if tail is None else jnp.concatenate([seq, tail[None]])
-
-    out_last = None
-    if iters % 2:
-        f_final, out_last = one(f_final)
-
+    f_final, outs = jax.lax.scan(body, f0, None, length=iters)
     if collect_density:
-        av_a, dens_a = outs_a
-        av_b, dens_b = outs_b
-        av_l, dens_l = out_last if out_last is not None else (None, None)
-        return (
-            f_final,
-            interleave(av_a, av_b, av_l),
-            interleave(dens_a, dens_b, dens_l),
-        )
-    return f_final, interleave(outs_a, outs_b, out_last)
+        return f_final, outs[0], outs[1]
+    return f_final, outs

@@ -8,7 +8,7 @@ Speed numbering follows the reference's layout diagram (d2q9-bgk.c:7-13):
 
 Axis convention used throughout this package: distribution arrays are
 ``(9, ny, nx)`` — axis 1 is y (``jj``, north = +1), axis 2 is x (``ii``,
-east = +1).  This planes-of-speeds (SoA) layout is the TPU-native
+east = +1).  This planes-of-speeds (SoA) layout is the vector-friendly
 replacement for the reference's array-of-structs ``t_speed`` (d2q9-bgk.c:75-79),
 whose AoS layout defeated the reference compiler's vectorizer
 (e000/hs000/vectorization.advisum: is_vectorized=0).

@@ -5,7 +5,7 @@ These mirror, op-for-op, the reference's *pre-fusion* pipeline
 rebound -> collision), each as a pure jittable function over a
 ``(9, ny, nx)`` fp32 distribution array.  The production path
 (:mod:`advanced_hpc_lbm_tpu.ops.fused`) composes the same math in a single
-pass; unit tests assert the two agree bitwise, which is the TPU analogue of
+pass; unit tests assert the two agree, which is this engine's form of
 the reference keeping all its legacy kernels around as cross-checks.
 
 All functions are pure: they take and return arrays, never mutate.
@@ -167,8 +167,7 @@ def timestep_pipeline(
     reduction of the *post-collision* state (collision_and_vel,
     d2q9-bgk.c:2434-2551).
 
-    Returns (f_next, av_vel).  Used as the oracle for the fused step and
-    the Pallas kernel.
+    Returns (f_next, av_vel).  Used as the oracle for the fused step.
     """
     f = accelerate_flow(f, obstacles, params.accel_w1, params.accel_w2)
     f = stream_pull(f)

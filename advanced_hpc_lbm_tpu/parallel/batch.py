@@ -4,12 +4,12 @@ The reference replicates whole runs at the cluster level: its array job
 (job_submit_array:11, ``--array=1-5``) launches five independent executions
 of the same deck as separate Slurm tasks.  SURVEY.md section 2 identifies
 that embarrassing parallelism as the workload's data-parallel analogue, and
-the TPU-native expression is a leading batch axis, not a job scheduler:
+the JAX expression is a leading batch axis, not a job scheduler:
 
-* single chip — ``jax.vmap`` the whole-run ``lax.scan`` over ``(B, 9, ny,
+* one device — ``jax.vmap`` the whole-run ``lax.scan`` over ``(B, 9, ny,
   nx)`` states and ``(B, ny, nx)`` obstacle masks, so one compiled program
-  integrates all B decks (XLA fuses the batch axis into the VPU tiling);
-* multi chip — shard that batch axis over a device mesh
+  integrates all B decks (XLA fuses the batch axis into the step);
+* several devices — shard that batch axis over a device mesh
   (``NamedSharding(mesh, P("batch"))``): each device integrates its own
   decks with ZERO collectives — the ideal-scaling end of the parallelism
   spectrum, vs the halo-exchange domain decomposition in
@@ -90,9 +90,8 @@ def batch_run(
       obstacles: (B, ny, nx) bool masks (``replicate`` or distinct decks).
       params: shared static run parameters.
       n_iters: steps (default ``params.max_iters``).
-      step_fn: single-step kernel for the inner scan (the jnp ``fused_step``
-        by default — it vmaps and shards transparently; opaque Pallas steps
-        belong to the single-run paths).
+      step_fn: single-step function for the inner scan (the jnp
+        ``fused_step`` by default — it vmaps and shards transparently).
       mesh / mesh_axis: optional data parallelism — shard the batch axis
         over ``mesh.axis_names[...] == mesh_axis`` (default: the mesh's
         first axis).  B must divide evenly over that axis's size.
@@ -106,16 +105,6 @@ def batch_run(
             f"expected batched (B,9,ny,nx) f0 and (B,ny,nx) obstacles, got "
             f"{f0.shape} and {obstacles.shape}"
         )
-    # opaque Pallas step kernels fail under vmap with obscure Mosaic trace
-    # errors; fail loudly here instead (mirrors halo.make_sharded_runner's
-    # explicit kernel guards)
-    if "pallas" in getattr(step_fn, "__module__", ""):
-        raise ValueError(
-            f"step_fn {step_fn.__name__!r} is a Pallas kernel and cannot be "
-            "vmapped over the batch axis; use the jnp fused_step (default) — "
-            "Pallas kernels belong to the single-run backends"
-        )
-
     if mesh is None:
         return _jitted(params, n_iters, step_fn, None, None)(f0, obstacles)
 

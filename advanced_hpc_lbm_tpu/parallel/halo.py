@@ -2,26 +2,26 @@
 
 Spatial sharding along y over a 1-D device mesh: each device owns a slab of
 rows; per step it exchanges one boundary row in each direction with its ring
-neighbors via ``lax.ppermute`` (over ICI on real hardware) and reduces the
-average-velocity scalar with ``lax.psum``.  Global periodicity falls out of
-the ring permutation — the wrap rows that cost the reference its 1500 lines
-of peeling (d2q9-bgk.c:262-1810) are just the ring edge between device n-1
-and device 0.
+neighbors via ``lax.ppermute`` (NVLink between the cards of one host) and
+reduces the average-velocity scalar with ``lax.psum``.  Global periodicity
+falls out of the ring permutation — the wrap rows that cost the reference
+its 1500 lines of peeling (d2q9-bgk.c:262-1810) are just the ring edge
+between device n-1 and device 0.
 
 This communicates 6 of the 9 planes' worth of data per edge per step
 (N-moving {2,5,6} pulled from the south halo, S-moving {4,7,8} from the
 north halo) but ships all 9 in one contiguous row slab — simpler, and the
-slab is tiny (9*nx*4 B) relative to ICI bandwidth.
+slab is tiny (9*nx*4 B) next to the slab's own traffic.
 
 The whole ``max_iters`` loop runs inside one ``shard_map`` + ``lax.scan``,
 so there is exactly one compiled program and zero host round-trips.
 
-Variants: ``kernel="pallas"`` runs the Mosaic local kernel per shard
-(ops.pallas_local — compute on-core, only boundary rows on the wire);
-``ca_steps=K`` exchanges K halo rows at once and advances K steps per
-exchange (communication-avoiding ghost zones — K× fewer ring latencies);
-``run_sharded_2d`` shards rows AND columns over a (my, mx) torus with a
-two-phase exchange that carries the diagonal-speed corners for free.
+Variants: ``ca_steps=K`` exchanges K halo rows at once and advances K
+steps per exchange (communication-avoiding ghost zones — K× fewer ring
+latencies); ``overlap=True`` issues the 1-step exchange before the
+halo-independent interior compute; ``run_sharded_2d`` shards rows AND
+columns over a (my, mx) torus with a two-phase exchange that carries the
+diagonal-speed corners for free.
 """
 
 from __future__ import annotations
@@ -31,16 +31,17 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from advanced_hpc_lbm_tpu.ops import lattice
+from advanced_hpc_lbm_tpu.ops import lattice, reference
 from advanced_hpc_lbm_tpu.params import LBMParams
 from advanced_hpc_lbm_tpu.parallel.mesh import make_y_mesh, make_yx_mesh
 
 
 def _masked_accelerate(f, obstacles, row_mask, w1, w2):
-    """Forcing as a whole-grid masked update (row_mask selects global row
-    ny-2, which lives on exactly one shard).  Same math as
-    ops.reference.accelerate_flow, phrased mask-globally/apply-locally so
-    every device runs identical code (SURVEY.md section 7 step 5)."""
+    """Forcing as a whole-window masked update (row_mask selects global
+    row ny-2, which lives on exactly one shard, or on a ghost row of a
+    window).  Same math as ops.reference.accelerate_flow, phrased
+    mask-globally/apply-locally so every device runs identical code
+    (SURVEY.md section 7 step 4)."""
     ok = (
         row_mask[None, :, None]
         & ~obstacles[None]
@@ -54,6 +55,17 @@ def _masked_accelerate(f, obstacles, row_mask, w1, w2):
     return f + jnp.where(ok, delta, 0.0)
 
 
+def _collide(streamed, obst, params: LBMParams):
+    """BGK relax + bounce-back select of a (9, ...) streamed window — the
+    fused step's own formulation (reference.macroscopic / equilibrium),
+    so every sharded schedule rounds like the single-device run."""
+    rho, u_x, u_y = reference.macroscopic(streamed)
+    feq = reference.equilibrium(rho, u_x, u_y)
+    relaxed = streamed + params.omega_f32 * (feq - streamed)
+    reflected = streamed[jnp.asarray(lattice.OPP)]
+    return jnp.where(obst[None], reflected, relaxed)
+
+
 def _stream_collide_rows(f_ext, obstacles_rows, params, m: int):
     """Pull-stream + BGK collide the middle ``m`` output rows of a
     (9, m+2, nx) window (one ghost/context row each side).  Elementwise
@@ -64,36 +76,18 @@ def _stream_collide_rows(f_ext, obstacles_rows, params, m: int):
         cy, cx = int(lattice.CY[k]), int(lattice.CX[k])
         rows = jax.lax.slice_in_dim(f_ext[k], 1 - cy, 1 - cy + m, axis=0)
         planes.append(jnp.roll(rows, cx, axis=1))
-    streamed = jnp.stack(planes)
-
-    rho = jnp.sum(streamed, axis=0)
-    u_x = (streamed[1] + streamed[5] + streamed[8]
-           - (streamed[3] + streamed[6] + streamed[7])) / rho
-    u_y = (streamed[2] + streamed[5] + streamed[6]
-           - (streamed[4] + streamed[7] + streamed[8])) / rho
-    u_sq = u_x * u_x + u_y * u_y
-    cx_v = jnp.asarray(lattice.CX, f_ext.dtype)[:, None, None]
-    cy_v = jnp.asarray(lattice.CY, f_ext.dtype)[:, None, None]
-    w_v = jnp.asarray(lattice.W)[:, None, None]
-    cu = cx_v * u_x[None] + cy_v * u_y[None]
-    c_sq = lattice.C_SQ
-    feq = w_v * rho[None] * (
-        1.0 + cu / c_sq + (cu * cu) / (2.0 * c_sq * c_sq)
-        - u_sq[None] / (2.0 * c_sq)
-    )
-    relaxed = streamed + params.omega_f32 * (feq - streamed)
-    reflected = streamed[jnp.asarray(lattice.OPP)]
-    return jnp.where(obstacles_rows[None], reflected, relaxed)
+    return _collide(jnp.stack(planes), obstacles_rows, params)
 
 
 def _av_reduce(f_next, obstacles, n_fluid, axes):
     """Post-collision ||u|| sum over local fluid cells, psum'd over the
-    mesh axes."""
-    rho2 = jnp.sum(f_next, axis=0)
-    v_x = (f_next[1] + f_next[5] + f_next[8]
-           - (f_next[3] + f_next[6] + f_next[7])) / rho2
-    v_y = (f_next[2] + f_next[5] + f_next[6]
-           - (f_next[4] + f_next[7] + f_next[8])) / rho2
+    mesh axes — the reference's reduction (d2q9-bgk.c:1103-1130) on every
+    sharded schedule.  (The pre-collision moments are equal in exact
+    arithmetic, but in fp32 a cell at rest has |u| exactly 0 before the
+    collision and ~1e-8 after it; summed over 10^7-10^9 cells that noise
+    is comparable to the early-step av signal, so only the post-collision
+    form matches the single-device run.)"""
+    _, v_x, v_y = reference.macroscopic(f_next)
     norm = jnp.sqrt(v_x * v_x + v_y * v_y)
     tot = jnp.sum(jnp.where(obstacles, 0.0, norm))
     for ax in axes:
@@ -126,8 +120,7 @@ def _local_fused_step_overlap(
     pattern SURVEY §5 invokes): the halo ppermutes are issued FIRST and
     the interior rows — whose stencil needs no ghost data — are computed
     before anything consumes them, so XLA's latency-hiding scheduler can
-    fly the (async on TPU) collective-permutes behind the interior
-    compute; only the two 1-row edge bands wait on the wire.  Per-row
+    fly the asynchronous collective-permutes behind the interior compute; only the two 1-row edge bands wait on the wire.  Per-row
     math is elementwise-identical to the unoverlapped step, so the two
     forms are BITWISE equal (tests/test_overlap.py) — pure schedule, no
     numerics.  Needs local_ny >= 3 (a 2-row slab has no interior)."""
@@ -185,9 +178,9 @@ def _local_fused_ca_steps(
 
     One ring exchange ships K boundary rows each way; the shard then
     advances K steps on the ±K-extended window, shrinking it one row per
-    side per step (the multi-chip analogue of ops.pallas_k's time tiling:
-    seam rows are recomputed by both neighbors, 2K/ly extra compute, in
-    exchange for K× fewer `ppermute` latencies on the wire).
+    side per step (time tiling across devices: seam rows are recomputed
+    by both neighbors, 2K/ly extra compute, in exchange for K× fewer
+    `ppermute` latencies on the wire).
 
     ``obst_ext`` / ``row_is_accel_ext`` are the (ly+2K,)-extended mask and
     forcing-row mask, precomputed once per run (masks are loop-invariant,
@@ -195,8 +188,6 @@ def _local_fused_ca_steps(
     """
     ly = f.shape[1]
     w = _extend_rows(f, axis, k, row_axis=1)  # (9, ly+2K, nx)
-
-    from advanced_hpc_lbm_tpu.ops import kernel_common
 
     avs = []
     densities = []
@@ -208,11 +199,8 @@ def _local_fused_ca_steps(
         accel_w = jax.lax.slice_in_dim(
             row_is_accel_ext, off, off + rows, axis=0
         )
-        w = kernel_common.forced(
-            [w[kk] for kk in range(lattice.NSPEEDS)],
-            obst_w,
-            accel_w[:, None],
-            params,
+        w = _masked_accelerate(
+            w, obst_w, accel_w, params.accel_w1, params.accel_w2
         )
         streamed = []
         for kk in range(lattice.NSPEEDS):
@@ -224,19 +212,16 @@ def _local_fused_ca_steps(
                 plane = jnp.roll(plane, cx, axis=1)
             streamed.append(plane)
         obst_in = jax.lax.slice_in_dim(obst_ext, off + 1, off + rows - 1, axis=0)
-        out_planes, u_sq = kernel_common.collide(streamed, obst_in, params)
-        w = jnp.stack(out_planes)
+        w = _collide(jnp.stack(streamed), obst_in, params)
         # reduction over the shard's own rows (offset depth-1 in the
-        # post-step window) from the pre-collision moments
-        own_usq = jax.lax.slice_in_dim(u_sq, depth - 1, depth - 1 + ly, axis=0)
+        # post-step window)
+        own_f = jax.lax.slice_in_dim(w, depth - 1, depth - 1 + ly, axis=1)
         own_obst = jax.lax.slice_in_dim(obst_ext, k, k + ly, axis=0)
-        tot = jnp.sum(jnp.where(own_obst, 0.0, jnp.sqrt(own_usq)))
-        avs.append(jax.lax.psum(tot, axis) / n_fluid)
+        avs.append(_av_reduce(own_f, own_obst, n_fluid, (axis,)))
         if collect_density:
-            # per-step total density over the shard's OWN rows of the
-            # post-step window (the #ifdef DEBUG stream,
-            # d2q9-bgk.c:196-200): one extra psum'd scalar
-            own_f = jax.lax.slice_in_dim(w, depth - 1, depth - 1 + ly, axis=1)
+            # per-step total density over the shard's OWN rows (the
+            # #ifdef DEBUG stream, d2q9-bgk.c:196-200): one extra psum'd
+            # scalar
             densities.append(jax.lax.psum(jnp.sum(own_f), axis))
     if collect_density:
         return w, jnp.stack(avs), jnp.stack(densities)
@@ -266,8 +251,6 @@ def _local_fused_ca_steps_2d(
     w = _extend_rows(f, ay, k, row_axis=1)  # (9, ly+2K, lx)
     w = _extend_rows(w, ax, k, row_axis=2)  # (9, ly+2K, lx+2K)
 
-    from advanced_hpc_lbm_tpu.ops import kernel_common
-
     avs = []
     densities = []
     for s in range(k):
@@ -281,11 +264,8 @@ def _local_fused_ca_steps_2d(
         accel_w = jax.lax.slice_in_dim(
             row_is_accel_ext, off, off + rows, axis=0
         )
-        w = kernel_common.forced(
-            [w[kk] for kk in range(lattice.NSPEEDS)],
-            obst_w,
-            accel_w[:, None],
-            params,
+        w = _masked_accelerate(
+            w, obst_w, accel_w, params.accel_w1, params.accel_w2
         )
         streamed = [
             jax.lax.slice(
@@ -299,20 +279,15 @@ def _local_fused_ca_steps_2d(
         obst_in = jax.lax.slice(
             obst_ext, (off + 1, off + 1), (off + rows - 1, off + cols - 1)
         )
-        out_planes, u_sq = kernel_common.collide(streamed, obst_in, params)
-        w = jnp.stack(out_planes)
+        w = _collide(jnp.stack(streamed), obst_in, params)
         # reduction over the shard's own cells (offset depth-1 in the
-        # post-step window) from the pre-collision moments
-        own_usq = jax.lax.slice(
-            u_sq, (depth - 1, depth - 1), (depth - 1 + ly, depth - 1 + lx)
+        # post-step window)
+        own_f = jax.lax.slice(
+            w, (0, depth - 1, depth - 1), (9, depth - 1 + ly, depth - 1 + lx)
         )
         own_obst = jax.lax.slice(obst_ext, (k, k), (k + ly, k + lx))
-        tot = jnp.sum(jnp.where(own_obst, 0.0, jnp.sqrt(own_usq)))
-        avs.append(jax.lax.psum(jax.lax.psum(tot, ay), ax) / n_fluid)
+        avs.append(_av_reduce(own_f, own_obst, n_fluid, (ay, ax)))
         if collect_density:
-            own_f = jax.lax.slice(
-                w, (0, depth - 1, depth - 1), (9, depth - 1 + ly, depth - 1 + lx)
-            )
             densities.append(
                 jax.lax.psum(jax.lax.psum(jnp.sum(own_f), ay), ax)
             )
@@ -321,154 +296,13 @@ def _local_fused_ca_steps_2d(
     return w, jnp.stack(avs)
 
 
-def _local_pallas_step(f, obstacles8, n_fluid, params, axis: str, interpret):
-    """One step where the local slab runs the Mosaic kernel
-    (ops.pallas_local) and only the two boundary rows ride the ring —
-    the production multi-chip configuration: compute on the core, halos
-    over ICI, global periodicity from the ring wrap."""
-    from advanced_hpc_lbm_tpu.ops import pallas_local
-
-    n = jax.lax.psum(1, axis)
-    fwd = [(j, (j + 1) % n) for j in range(n)]
-    bwd = [(j, (j - 1) % n) for j in range(n)]
-
-    local_ny = f.shape[1]
-    top_halo = jax.lax.ppermute(f[:, -1:, :], axis, fwd)
-    bot_halo = jax.lax.ppermute(f[:, :1, :], axis, bwd)
-
-    # local index of the forcing row (global ny-2), or -1 off-shard; the
-    # body is SPMD-traced once, so this must be data-dependent
-    d = jax.lax.axis_index(axis)
-    lo = d * local_ny
-    global_accel = n * local_ny - 2
-    accel_local = jnp.where(
-        (global_accel >= lo) & (global_accel < lo + local_ny),
-        global_accel - lo,
-        -1,
-    ).astype(jnp.int32)
-
-    f_next, tot_local = pallas_local.local_step(
-        f, top_halo, bot_halo, obstacles8, accel_local, params,
-        interpret=interpret,
-    )
-    av = jax.lax.psum(tot_local, axis) / n_fluid
-    return f_next, av
-
-
-def _local_pallas_ca_steps(
-    f, obst_ext_f, accel_ext_f, n_fluid, params, axis: str, k: int, interpret
-):
-    """K steps per exchange where the ±K ghost window runs the Mosaic CA
-    kernel (ops.pallas_local.local_ca_steps) — the full production
-    multi-chip configuration: compute on-core, K× fewer ring latencies.
-    ``obst_ext_f`` / ``accel_ext_f`` are the (ly+2K, nx) fp32 mask planes,
-    loop-invariant (built once by make_sharded_runner)."""
-    from advanced_hpc_lbm_tpu.ops import pallas_local
-
-    window = _extend_rows(f, axis, k, row_axis=1)
-    f_next, tots = pallas_local.local_ca_steps(
-        window, obst_ext_f, accel_ext_f, params, k, interpret=interpret
-    )
-    return f_next, jax.lax.psum(tots, axis) / n_fluid
-
-
-def _stream_compiled_supported(ly: int, nx: int) -> bool:
-    """Can a COMPILED (non-interpret) stream window kernel run a
-    (ly, nx) shard here?  pallas_stream.window_supported covers the
-    structural tiling; the platform half lives at this call site because
-    interpret mode legitimately runs the same kernel anywhere."""
-    from advanced_hpc_lbm_tpu.ops import pallas_stream
-
-    try:
-        on_tpu = jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
-    return on_tpu and pallas_stream.window_supported(ly, nx)
-
-
-def _stream_compiled_supported_2d(ly: int, lx: int) -> bool:
-    """2-D-torus twin of :func:`_stream_compiled_supported` (the window is
-    additionally ±X_GHOST column-extended)."""
-    from advanced_hpc_lbm_tpu.ops import pallas_stream
-
-    try:
-        on_tpu = jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
-    return on_tpu and pallas_stream.window_supported_2d(ly, lx)
-
-
-def resolve_shard_kernel(
-    params: LBMParams,
-    *,
-    n_devices: int | None = None,
-    mesh_shape: tuple[int, int] | None = None,
-    ca_steps: int = 1,
-    on_tpu: bool | None = None,
-) -> str:
-    """The sharded path's backend ladder (VERDICT round-4 item 1): given
-    the mesh and the per-shard slab shape, pick the fastest applicable
-    local kernel — mirroring the single-chip measured gates
-    (models/d2q9_bgk._resolve_backend) so a plain ``run(devices=N)`` on
-    TPU-shaped slabs lands on a Mosaic kernel without flags.
-
-    Ladder (first hit wins):
-      * ``stream`` — the HBM-streaming K=8 manual-DMA window kernel, for
-        slabs in the DMA-bound regime (> 1024² cells — the same measured
-        threshold the single-chip auto uses for its K-step tiers) whose
-        window tiles; it fixes the exchange schedule at K=8, so an
-        explicit incompatible ``ca_steps`` opts out of it.
-      * ``pallas`` — the Mosaic VMEM-window local kernel (1-step, or the
-        CA window kernel when ``ca_steps`` > 1 and the ±K window fits).
-      * ``jnp`` — the XLA-fused local step (CPU, odd shapes, thin slabs).
-
-    Explicit kernels are always honored; this only resolves ``"auto"``.
-    ``on_tpu`` overrides the platform probe (tests).
-    """
-    from advanced_hpc_lbm_tpu.ops import pallas_local, pallas_stream
-
-    if on_tpu is None:
-        try:
-            on_tpu = jax.devices()[0].platform == "tpu"
-        except Exception:
-            on_tpu = False
-    if not on_tpu:
-        return "jnp"
-    ny, nx = params.ny, params.nx
-    if mesh_shape is not None:
-        my, mx = mesh_shape
-        if ny % my or nx % mx:
-            return "jnp"  # indivisible: prepare_* raises the real error
-        ly, lx = ny // my, nx // mx
-    else:
-        if n_devices is None:
-            try:
-                n_devices = len(jax.devices())
-            except Exception:
-                return "jnp"
-        if ny % n_devices:
-            return "jnp"
-        ly, lx = ny // n_devices, nx
-    if ca_steps in (1, pallas_stream.K) and ly * lx > 1024 * 1024:
-        if mesh_shape is None and pallas_stream.window_supported(ly, lx):
-            return "stream"
-        if mesh_shape is not None and pallas_stream.window_supported_2d(
-            ly, lx
-        ):
-            return "stream"
-    if mesh_shape is not None:
-        # the Mosaic CA window kernel is 1-D-ring-specific
-        if ca_steps > 1:
-            return "jnp"
-        return "pallas" if pallas_local.supported(ly, lx) else "jnp"
-    if ca_steps > 1:
-        return (
-            "pallas"
-            if pallas_local.supported(ly, lx)
-            and pallas_local.ca_supported(ly, lx, ca_steps)
-            else "jnp"
-        )
-    return "pallas" if pallas_local.supported(ly, lx) else "jnp"
+def _shardings(mesh: Mesh, f_spec, grid_spec, row_spec) -> dict:
+    return {
+        "f": NamedSharding(mesh, f_spec),
+        "grid": NamedSharding(mesh, grid_spec),
+        "row": NamedSharding(mesh, row_spec),
+        "scalar": NamedSharding(mesh, P()),
+    }
 
 
 def make_sharded_runner(
@@ -476,81 +310,35 @@ def make_sharded_runner(
     params: LBMParams,
     n_iters: int,
     axis: str = "y",
-    kernel: str = "jnp",
-    interpret: bool = False,
     ca_steps: int = 1,
     collect_density: bool = False,
     overlap: bool = False,
 ):
     """Build the jitted sharded main loop for a given mesh + deck shape.
 
-    ``kernel``: "jnp" (XLA-fused local step, runs anywhere) or "pallas"
-    (ops.pallas_local Mosaic kernel per shard — the TPU production path).
     ``ca_steps`` > 1 runs K steps per halo exchange via communication-
     avoiding ghost zones — K× fewer ring latencies for 2K/ly extra seam
-    compute (_local_fused_ca_steps; with kernel="pallas" the whole ±K
-    window runs the Mosaic CA kernel, gated on pallas_local.ca_supported).
-    ``kernel="stream"`` runs the HBM-streaming manual-DMA kernel
-    (ops.pallas_stream.window_ca_steps) on each shard's ±K ghost window,
-    K=8 steps per exchange — the multi-chip composition of the
-    single-chip huge-grid record holder, for shards whose slab is itself
-    too big for VMEM-window kernels (implies ca_steps=8; pass ca_steps=1
-    (default) or 8).
+    compute (_local_fused_ca_steps).
     ``collect_density`` also streams the per-step total density — a
     psum'd scalar per step — through the scan (the reference's #ifdef
-    DEBUG output, d2q9-bgk.c:196-200); the combinations that can't
-    stream it natively are the Mosaic CA window kernel and the streaming
-    window kernel (intermediate states live only inside the kernel),
-    which debug-fall-back to the jnp CA path, mirroring the
-    single-device debug fallback to the fused scan.
-    ``kernel="auto"`` resolves via :func:`resolve_shard_kernel`.
+    DEBUG output, d2q9-bgk.c:196-200).
     ``overlap`` uses the comm/compute-overlapped local step
     (:func:`_local_fused_step_overlap` — issue the halo ppermutes first,
-    compute the halo-independent interior rows while they fly); jnp
-    1-step kernel only (the CA/stream schedules already amortize the
-    exchange K-fold, and the Mosaic kernels consume pre-assembled
-    windows).  Bitwise-equal outputs to the default schedule.
+    compute the halo-independent interior rows while they fly); 1-step
+    schedule only (the CA schedule already amortizes the exchange
+    K-fold).  Bitwise-equal outputs to the default schedule.
     Returns (runner, shardings) where runner(f0, obstacles,
     row_mask, n_fluid) -> (f_final, av_vels[, densities])."""
-    if kernel == "auto":
-        kernel = resolve_shard_kernel(
-            params, n_devices=mesh.devices.size, ca_steps=ca_steps
-        )
-    if overlap and (kernel != "jnp" or ca_steps > 1):
+    if overlap and ca_steps > 1:
         raise ValueError(
-            "overlap=True is the 1-step jnp local schedule; the CA/stream"
-            " schedules already amortize the exchange (use ca_steps)"
+            "overlap=True is the 1-step jnp local schedule; the CA"
+            " schedule already amortizes the exchange (use ca_steps)"
         )
     if overlap and params.ny // mesh.devices.size < 3:
         raise ValueError(
             "overlap=True needs local slabs >= 3 rows (a 2-row slab has "
             "no halo-independent interior)"
         )
-    if kernel == "stream":
-        from advanced_hpc_lbm_tpu.ops import pallas_stream
-
-        if ca_steps not in (1, pallas_stream.K):
-            raise ValueError(
-                f"kernel='stream' advances K={pallas_stream.K} steps per "
-                f"exchange by construction; pass ca_steps={pallas_stream.K} "
-                "or leave it at 1"
-            )
-        ca_steps = pallas_stream.K
-        if collect_density:
-            kernel = "jnp"  # debug fallback (per-step densities)
-        elif not interpret:
-            # window_supported is platform-agnostic by design (interpret
-            # mode runs anywhere); a compiled run needs the TPU check the
-            # pallas branch gets from pallas_local.supported, or Mosaic
-            # dies with an opaque lowering error instead of this
-            ly = params.ny // mesh.devices.size
-            if not _stream_compiled_supported(ly, params.nx):
-                raise ValueError(
-                    f"{ly}x{params.nx} shard window not runnable by the "
-                    "stream kernel (TPU backend, lane-aligned nx, "
-                    f"8-multiple slab >= {pallas_stream.K} rows required); "
-                    "use kernel='jnp'/'pallas' or interpret=True"
-                )
 
     f_spec = P(None, axis, None)
     grid_spec = P(axis, None)
@@ -559,133 +347,6 @@ def make_sharded_runner(
     def whole_run(f, obstacles, row_mask, n_fluid):
         def dens_of(f_local):
             return jax.lax.psum(jnp.sum(f_local), axis)
-
-        if kernel == "stream":
-            from advanced_hpc_lbm_tpu.ops import pallas_stream
-
-            k = ca_steps  # == pallas_stream.K
-            enc = pallas_stream.encode_masks(obstacles, row_mask)
-            enc_ext = _extend_rows(enc, axis, k, row_axis=0)
-
-            def one_stream(carry_f):
-                window = _extend_rows(carry_f, axis, k, row_axis=1)
-                f_own, tots = pallas_stream.window_ca_steps(
-                    window, enc_ext, params, interpret=interpret
-                )
-                return f_own, jax.lax.psum(tots, axis) / n_fluid
-
-            # two opaque kernel calls per scan body (copy-free carry,
-            # see ops.fused.run_simulation)
-            def body_s(carry_f, _):
-                f1, a1 = one_stream(carry_f)
-                f2, a2 = one_stream(f1)
-                return f2, jnp.concatenate([a1, a2])
-
-            f, av_chunks = jax.lax.scan(
-                body_s, f, None, length=n_iters // (2 * k)
-            )
-            avs = av_chunks.reshape(-1)
-            rem = n_iters % (2 * k)
-            if rem >= k:
-                f, av_mid = one_stream(f)
-                avs = jnp.concatenate([avs, av_mid])
-                rem -= k
-            for _ in range(rem):  # sub-K tail: 1-step jnp local step
-                f, av_last = _local_fused_step(
-                    f, obstacles, row_mask, n_fluid, params, axis
-                )
-                avs = jnp.concatenate([avs, av_last[None]])
-            return f, avs
-
-        if kernel == "pallas" and ca_steps > 1 and not collect_density:
-            from advanced_hpc_lbm_tpu.ops import pallas_local
-
-            k = ca_steps
-            ly = f.shape[1]
-            if not interpret:
-                if not pallas_local.supported(ly, f.shape[2]):
-                    # also the tail path's requirement (1-step kernel)
-                    raise ValueError(
-                        f"{ly}x{f.shape[2]} shard not tileable for the "
-                        "pallas local kernel (TPU backend, lane-aligned "
-                        "nx, 8-multiple slab required)"
-                    )
-                if not pallas_local.ca_supported(ly, f.shape[2], k):
-                    raise ValueError(
-                        f"ca_steps={k} with the pallas kernel needs the "
-                        f"{ly}x{f.shape[2]} +-{k} shard window to fit "
-                        "VMEM (pallas_local.ca_supported); use "
-                        "kernel='jnp' or a thinner shard"
-                    )
-            obst_ext_f = _extend_rows(obstacles, axis, k).astype(jnp.float32)
-            row_ext = _extend_rows(row_mask, axis, k)
-            accel_ext_f = jnp.broadcast_to(
-                row_ext[:, None], obst_ext_f.shape
-            ).astype(jnp.float32)
-
-            def one_ca(carry_f):
-                return _local_pallas_ca_steps(
-                    carry_f, obst_ext_f, accel_ext_f, n_fluid, params,
-                    axis, k, interpret,
-                )
-
-            # two CA calls per scan iteration (opaque-call carry rule,
-            # see ops.fused.run_simulation)
-            def body_cap(carry_f, _):
-                f1, a1 = one_ca(carry_f)
-                f2, a2 = one_ca(f1)
-                return f2, jnp.concatenate([a1, a2])
-
-            f, av_chunks = jax.lax.scan(
-                body_cap, f, None, length=n_iters // (2 * k)
-            )
-            avs = av_chunks.reshape(-1)
-            obstacles8 = obstacles.astype(jnp.int8)
-            for _ in range(n_iters % (2 * k)):  # static tail, 1-step kernel
-                f, av_last = _local_pallas_step(
-                    f, obstacles8, n_fluid, params, axis, interpret
-                )
-                avs = jnp.concatenate([avs, av_last[None]])
-            return f, avs
-
-        if kernel == "pallas":
-            from advanced_hpc_lbm_tpu.ops import pallas_local as _pk  # noqa: F401
-
-            obstacles8 = obstacles.astype(jnp.int8)
-
-            def one(carry_f):
-                return _local_pallas_step(
-                    carry_f, obstacles8, n_fluid, params, axis, interpret
-                )
-
-            # two steps per scan iteration: the opaque local kernel would
-            # otherwise force XLA to copy the full local state every step
-            # to update the carry in place (see ops.fused.run_simulation)
-            def body(carry_f, _):
-                f1, av1 = one(carry_f)
-                f2, av2 = one(f1)
-                if collect_density:
-                    # density from the full post-step local slabs (cheap
-                    # psum'd scalars, computed OUTSIDE the opaque kernel)
-                    return f2, (
-                        jnp.stack([av1, av2]),
-                        jnp.stack([dens_of(f1), dens_of(f2)]),
-                    )
-                return f2, jnp.stack([av1, av2])
-
-            f, outs = jax.lax.scan(body, f, None, length=n_iters // 2)
-            if collect_density:
-                avs, denss = outs[0].reshape(-1), outs[1].reshape(-1)
-            else:
-                avs = outs.reshape(-1)
-            if n_iters % 2:
-                f, av_last = one(f)
-                avs = jnp.concatenate([avs, av_last[None]])
-                if collect_density:
-                    denss = jnp.concatenate([denss, dens_of(f)[None]])
-            if collect_density:
-                return f, avs, denss
-            return f, avs
 
         if ca_steps > 1:
             k = ca_steps
@@ -738,18 +399,9 @@ def make_sharded_runner(
         mesh=mesh,
         in_specs=(f_spec, grid_spec, row_spec, P()),
         out_specs=(f_spec, P(), P()) if collect_density else (f_spec, P()),
-        # pallas_call outputs carry no varying-across-mesh annotation, so
-        # the vma consistency check can't see through them
-        check_vma=(kernel not in ("pallas", "stream")),
     )
     runner = jax.jit(mapped, donate_argnums=0)
-    shardings = {
-        "f": NamedSharding(mesh, f_spec),
-        "grid": NamedSharding(mesh, grid_spec),
-        "row": NamedSharding(mesh, row_spec),
-        "scalar": NamedSharding(mesh, P()),
-    }
-    return runner, shardings
+    return runner, _shardings(mesh, f_spec, grid_spec, row_spec)
 
 
 def _local_fused_step_2d(f, obstacles, row_mask, n_fluid, params, ay, ax):
@@ -786,91 +438,8 @@ def _local_fused_step_2d(f, obstacles, row_mask, n_fluid, params, ay, ax):
         for k in range(lattice.NSPEEDS)
     ]
 
-    from advanced_hpc_lbm_tpu.ops import kernel_common
-
-    out_planes, u_sq = kernel_common.collide(streamed, obstacles, params)
-    f_next = jnp.stack(out_planes)
-    norm = jnp.sqrt(u_sq)
-    tot_local = jnp.sum(jnp.where(obstacles, 0.0, norm))
-    av = jax.lax.psum(jax.lax.psum(tot_local, ay), ax) / n_fluid
-    return f_next, av
-
-
-def _local_pallas_step_2d(
-    f, obstacles8, n_fluid, params, ay, ax, interpret
-):
-    """One 2-D-sharded step where the local block runs the Mosaic kernel
-    (ops.pallas_local.local_step_2d) — compute on-core, only edge rows and
-    columns on the wire.  Same two-phase corner-free exchange as the jnp
-    path: rows over the y ring first, then columns OF THE ROW-EXTENDED
-    edges over the x ring, which carries the diagonal corners for free."""
-    from advanced_hpc_lbm_tpu.ops import pallas_local
-    from advanced_hpc_lbm_tpu.ops.pallas_local import _XCOL_PLANES
-
-    ny_dev = jax.lax.psum(1, ay)
-    nx_dev = jax.lax.psum(1, ax)
-    fwd_y = [(j, (j + 1) % ny_dev) for j in range(ny_dev)]
-    bwd_y = [(j, (j - 1) % ny_dev) for j in range(ny_dev)]
-    fwd_x = [(j, (j + 1) % nx_dev) for j in range(nx_dev)]
-    bwd_x = [(j, (j - 1) % nx_dev) for j in range(nx_dev)]
-
-    ly = f.shape[1]
-    # phase 1: edge rows over the y ring (rows ny-1 and 0 — never the
-    # forcing row ny-2 since ly >= 8, so pre-forcing values are correct)
-    top = jax.lax.ppermute(f[:, -1:, :], ay, fwd_y)  # (9, 1, lx)
-    bot = jax.lax.ppermute(f[:, :1, :], ay, bwd_y)
-
-    # the forcing row (global ny-2) IS interior to one shard row, so the
-    # exported x-edge columns cross it: the x-neighbor pulls post-forcing
-    # values, apply the forcing to the edge columns before export (the
-    # local block gets it in-kernel).  The halo corner rows (lo-1, lo+ly)
-    # can't be ny-2 either, so only the local span needs it.
-    d = jax.lax.axis_index(ay)
-    lo = d * ly
-    global_accel = ny_dev * ly - 2
-    row_mask_local = (jnp.arange(ly) + lo) == global_accel  # (ly,)
-    obst_bool = obstacles8 != 0
-
-    def forced_edge_col(x_slice):
-        col = _masked_accelerate(
-            f[:, :, x_slice], obst_bool[:, x_slice], row_mask_local,
-            params.accel_w1, params.accel_w2,
-        )  # (9, ly, 1)
-        return col
-
-    # phase 2: row-extended edge COLUMNS over the x ring (corner-carrying)
-    right_edge = jnp.concatenate(
-        [top[:, :, -1:], forced_edge_col(slice(-1, None)), bot[:, :, -1:]],
-        axis=1,
-    )  # (9, ly+2, 1) — this shard's rightmost column, row-extended
-    left_edge = jnp.concatenate(
-        [top[:, :, :1], forced_edge_col(slice(0, 1)), bot[:, :, :1]], axis=1
-    )
-    left_halo = jax.lax.ppermute(right_edge, ax, fwd_x)  # from x-neighbor left
-    right_halo = jax.lax.ppermute(left_edge, ax, bwd_x)
-
-    # pre-shift per consuming plane: plane k (cy, cx) pulls its x-edge
-    # value from row range [1-cy, 1-cy+ly) of the extended halo column
-    cols = []
-    for k in _XCOL_PLANES:
-        cy, cx = int(lattice.CY[k]), int(lattice.CX[k])
-        src = left_halo if cx == 1 else right_halo
-        cols.append(jax.lax.slice_in_dim(src[k], 1 - cy, 1 - cy + ly, axis=0))
-    halo_cols = jnp.stack(cols)  # (6, ly, 1)
-
-    # local index of the forcing row (global ny-2), or -1 off-shard
-    accel_local = jnp.where(
-        (global_accel >= lo) & (global_accel < lo + ly),
-        global_accel - lo,
-        -1,
-    ).astype(jnp.int32)
-
-    f_next, tot_local = pallas_local.local_step_2d(
-        f, top, bot, halo_cols, obstacles8, accel_local, params,
-        interpret=interpret,
-    )
-    av = jax.lax.psum(jax.lax.psum(tot_local, ay), ax) / n_fluid
-    return f_next, av
+    f_next = _collide(jnp.stack(streamed), obstacles, params)
+    return f_next, _av_reduce(f_next, obstacles, n_fluid, (ay, ax))
 
 
 def make_sharded_runner_2d(
@@ -878,62 +447,17 @@ def make_sharded_runner_2d(
     params: LBMParams,
     n_iters: int,
     *,
-    kernel: str = "jnp",
-    interpret: bool = False,
     ca_steps: int = 1,
     collect_density: bool = False,
 ):
     """Build the jitted (my, mx)-torus main loop (rows AND columns sharded).
 
-    ``kernel``: "jnp" (XLA-fused local step) or "pallas" (per-shard Mosaic
-    kernel — the TPU production path, ops.pallas_local.local_step_2d).
     ``ca_steps`` > 1 runs K steps per two-phase halo exchange
     (communication-avoiding ghost zones on the torus,
-    _local_fused_ca_steps_2d; jnp kernel only — the Mosaic CA window
-    kernel is 1-D-ring-specific, so kernel="pallas" + ca_steps > 1 raises).
-    ``kernel="stream"`` runs the HBM-streaming window kernel on each
-    shard's ±K-row/±X_GHOST-column ghost block, K=8 steps per two-phase
-    exchange (ops.pallas_stream.window_ca_steps_2d) — the x-sharded
-    growth path that lifts the full-nx row-slab VMEM ceiling (nx ≲ 33k)
-    of the 1-D stream composition.
+    _local_fused_ca_steps_2d).
     ``collect_density`` streams the per-step total density (double-psum'd
     scalar) like make_sharded_runner.
-    ``kernel="auto"`` resolves via :func:`resolve_shard_kernel`.
     Returns (runner, shardings) like make_sharded_runner."""
-    if kernel == "auto":
-        my, mx = mesh.devices.shape
-        kernel = resolve_shard_kernel(
-            params, mesh_shape=(my, mx), ca_steps=ca_steps
-        )
-    if ca_steps > 1 and kernel == "pallas":
-        raise ValueError(
-            "ca_steps > 1 with kernel='pallas' is not supported on the 2-D "
-            "torus (the Mosaic CA window kernel assumes an unsharded "
-            "periodic x axis); use kernel='jnp' or a 1-D mesh"
-        )
-    if kernel == "stream":
-        from advanced_hpc_lbm_tpu.ops import pallas_stream
-
-        if ca_steps not in (1, pallas_stream.K):
-            raise ValueError(
-                f"kernel='stream' advances K={pallas_stream.K} steps per "
-                f"exchange by construction; pass ca_steps={pallas_stream.K} "
-                "or leave it at 1"
-            )
-        ca_steps = pallas_stream.K
-        if collect_density:
-            kernel = "jnp"  # debug fallback (per-step densities)
-        elif not interpret:
-            my, mx = mesh.devices.shape
-            ly, lx = params.ny // my, params.nx // mx
-            if not _stream_compiled_supported_2d(ly, lx):
-                raise ValueError(
-                    f"{ly}x{lx} shard block not runnable by the 2-D stream "
-                    "kernel (TPU backend, lane-aligned lx, 8-multiple "
-                    f"block >= {pallas_stream.K} rows required); use "
-                    "kernel='jnp'/'pallas' or interpret=True"
-                )
-
     f_spec = P(None, "y", "x")
     grid_spec = P("y", "x")
     row_spec = P("y")
@@ -941,90 +465,6 @@ def make_sharded_runner_2d(
     def whole_run(f, obst, rmask, nf):
         def dens_of(f_local):
             return jax.lax.psum(jax.lax.psum(jnp.sum(f_local), "y"), "x")
-
-        if kernel == "stream":
-            from advanced_hpc_lbm_tpu.ops import pallas_stream
-
-            k = ca_steps  # == pallas_stream.K
-            gx = pallas_stream.X_GHOST
-            lx = obst.shape[1]
-            # encoded mask, two-phase ±K/±gx extension (corner-carrying),
-            # ghost columns +4-flagged out of the reduction — all
-            # loop-invariant, built once
-            enc = pallas_stream.encode_masks(obst, rmask)
-            enc_ext = _extend_rows(enc, "y", k, row_axis=0)
-            enc_ext = _extend_rows(enc_ext, "x", gx, row_axis=1)
-            cols = jnp.arange(lx + 2 * gx)
-            ghost_cols = (cols < gx) | (cols >= gx + lx)
-            enc_ext = pallas_stream.mark_reduction_excluded(
-                enc_ext, jnp.broadcast_to(ghost_cols[None, :], enc_ext.shape)
-            )
-
-            def one_stream(carry_f):
-                w = _extend_rows(carry_f, "y", k, row_axis=1)
-                w = _extend_rows(w, "x", gx, row_axis=2)
-                f_own, tots = pallas_stream.window_ca_steps_2d(
-                    w, enc_ext, params, interpret=interpret
-                )
-                return f_own, jax.lax.psum(
-                    jax.lax.psum(tots, "y"), "x"
-                ) / nf
-
-            # two opaque kernel calls per scan body (copy-free carry,
-            # see ops.fused.run_simulation)
-            def body_s(carry_f, _):
-                f1, a1 = one_stream(carry_f)
-                f2, a2 = one_stream(f1)
-                return f2, jnp.concatenate([a1, a2])
-
-            f, av_chunks = jax.lax.scan(
-                body_s, f, None, length=n_iters // (2 * k)
-            )
-            avs = av_chunks.reshape(-1)
-            rem = n_iters % (2 * k)
-            if rem >= k:
-                f, av_mid = one_stream(f)
-                avs = jnp.concatenate([avs, av_mid])
-                rem -= k
-            for _ in range(rem):  # sub-K tail: 1-step jnp local step
-                f, av_last = _local_fused_step_2d(
-                    f, obst, rmask, nf, params, "y", "x"
-                )
-                avs = jnp.concatenate([avs, av_last[None]])
-            return f, avs
-
-        if kernel == "pallas":
-            obst8 = obst.astype(jnp.int8)
-
-            def one(carry_f):
-                return _local_pallas_step_2d(
-                    carry_f, obst8, nf, params, "y", "x", interpret
-                )
-
-            # paired body — copy-free carry, see make_sharded_runner
-            def body(carry_f, _):
-                f1, av1 = one(carry_f)
-                f2, av2 = one(f1)
-                if collect_density:
-                    return f2, (
-                        jnp.stack([av1, av2]),
-                        jnp.stack([dens_of(f1), dens_of(f2)]),
-                    )
-                return f2, jnp.stack([av1, av2])
-
-            f, outs = jax.lax.scan(body, f, None, length=n_iters // 2)
-            if collect_density:
-                avs, denss = outs[0].reshape(-1), outs[1].reshape(-1)
-            else:
-                avs = outs.reshape(-1)
-            if n_iters % 2:
-                f, av_last = one(f)
-                avs = jnp.concatenate([avs, av_last[None]])
-                if collect_density:
-                    denss = jnp.concatenate([denss, dens_of(f)[None]])
-            if collect_density:
-                return f, avs, denss
-            return f, avs
 
         if ca_steps > 1:
             k = ca_steps
@@ -1076,16 +516,9 @@ def make_sharded_runner_2d(
         mesh=mesh,
         in_specs=(f_spec, grid_spec, row_spec, P()),
         out_specs=(f_spec, P(), P()) if collect_density else (f_spec, P()),
-        check_vma=(kernel not in ("pallas", "stream")),
     )
     runner = jax.jit(mapped, donate_argnums=0)
-    shardings = {
-        "f": NamedSharding(mesh, f_spec),
-        "grid": NamedSharding(mesh, grid_spec),
-        "row": NamedSharding(mesh, row_spec),
-        "scalar": NamedSharding(mesh, P()),
-    }
-    return runner, shardings
+    return runner, _shardings(mesh, f_spec, grid_spec, row_spec)
 
 
 def prepare_sharded_2d(
@@ -1093,8 +526,6 @@ def prepare_sharded_2d(
     n_iters: int,
     mesh_shape: tuple[int, int],
     *,
-    kernel: str = "jnp",
-    interpret: bool = False,
     ca_steps: int = 1,
     collect_density: bool = False,
 ):
@@ -1106,37 +537,17 @@ def prepare_sharded_2d(
         raise ValueError(
             f"grid {params.ny}x{params.nx} not divisible by mesh {my}x{mx}"
         )
-    if kernel == "auto":
-        kernel = resolve_shard_kernel(
-            params, mesh_shape=mesh_shape, ca_steps=ca_steps
-        )
-    # the thin-block gate must see the EFFECTIVE schedule (mirrors
-    # prepare_sharded's stream normalization): stream runs K=8 windows
-    # gated by window_supported_2d (ly >= K), while its debug fallback
-    # really runs the jnp CA path at K=8 and needs 2K ghost zones
-    eff_kernel, eff_ca = kernel, ca_steps
-    if kernel == "stream":
-        from advanced_hpc_lbm_tpu.ops import pallas_stream
-
-        if ca_steps in (1, pallas_stream.K):
-            eff_ca = pallas_stream.K
-            eff_kernel = "jnp" if collect_density else "stream"
-        # else: make_sharded_runner_2d raises the actionable error below
-    if (
-        eff_kernel != "stream"
-        and eff_ca > 1
-        and (
-            params.ny // my < 2 * eff_ca or params.nx // mx < 2 * eff_ca
-        )
+    if ca_steps > 1 and (
+        params.ny // my < 2 * ca_steps or params.nx // mx < 2 * ca_steps
     ):
         raise ValueError(
             f"local block {params.ny // my}x{params.nx // mx} too thin for "
-            f"ca_steps={eff_ca} ghost zones"
+            f"ca_steps={ca_steps} ghost zones"
         )
     mesh = make_yx_mesh(my, mx)
     return make_sharded_runner_2d(
-        mesh, params, n_iters, kernel=kernel, interpret=interpret,
-        ca_steps=ca_steps, collect_density=collect_density,
+        mesh, params, n_iters, ca_steps=ca_steps,
+        collect_density=collect_density,
     )
 
 
@@ -1153,38 +564,65 @@ def _put(x, sharding):
     return jax.device_put(x, sharding)
 
 
+def initial_state_sharded(params: LBMParams, sharding) -> jax.Array:
+    """The equilibrium-at-rest state (reference.initial_state) built
+    directly in ``sharding``: each device writes only its own block, so no
+    device ever holds the whole grid (at 32768² one state is 38.7 GB)."""
+    return jax.jit(
+        lambda: reference.initial_state(params), out_shardings=sharding
+    )()
+
+
+def compile_sharded(runner, shardings, params: LBMParams):
+    """AOT-compile ``runner`` for its sharded inputs (what
+    Simulation.warmup does during the Init phase)."""
+    ny, nx = params.ny, params.nx
+    return runner.lower(
+        jax.ShapeDtypeStruct((9, ny, nx), jnp.float32, sharding=shardings["f"]),
+        jax.ShapeDtypeStruct((ny, nx), jnp.bool_, sharding=shardings["grid"]),
+        jax.ShapeDtypeStruct((ny,), jnp.bool_, sharding=shardings["row"]),
+        jax.ShapeDtypeStruct((), jnp.float32, sharding=shardings["scalar"]),
+    ).compile()
+
+
 def execute_sharded(runner, shardings, f0, obstacles, params: LBMParams):
-    """Put the inputs per the runner's shardings and invoke it."""
-    row_mask = jnp.zeros(params.ny, bool).at[params.ny - 2].set(True)
-    n_fluid = jnp.sum(obstacles == 0).astype(jnp.float32)
-    f0 = _put(f0, shardings["f"])
-    obstacles = _put(obstacles, shardings["grid"])
-    row_mask = _put(row_mask, shardings["row"])
-    n_fluid = _put(n_fluid, shardings["scalar"])
-    return runner(f0, obstacles, row_mask, n_fluid)
+    """Put the inputs per the runner's shardings and invoke it.  ``f0``
+    None starts from :func:`initial_state_sharded`; the mask, forcing-row
+    mask and fluid count are built on the host and put shard by shard."""
+    obstacles = np.asarray(obstacles, dtype=bool)
+    row_mask = np.zeros(params.ny, bool)
+    row_mask[params.ny - 2] = True
+    n_fluid = np.float32(np.count_nonzero(~obstacles))
+    f0 = (
+        initial_state_sharded(params, shardings["f"])
+        if f0 is None
+        else _put(f0, shardings["f"])
+    )
+    return runner(
+        f0,
+        _put(obstacles, shardings["grid"]),
+        _put(row_mask, shardings["row"]),
+        _put(n_fluid, shardings["scalar"]),
+    )
 
 
 def run_sharded_2d(
-    f0: jax.Array,
+    f0: jax.Array | None,
     obstacles: jax.Array,
     params: LBMParams,
     mesh_shape: tuple[int, int],
     *,
     n_iters: int | None = None,
-    kernel: str = "jnp",
-    interpret: bool = False,
     ca_steps: int = 1,
     collect_density: bool = False,
 ) -> tuple[jax.Array, ...]:
     """Full loop on a (my, mx) torus: rows AND columns sharded.
 
-    See make_sharded_runner_2d for the kernel / ca_steps semantics.
-    Note: this path computes the reduction from pre-collision moments
-    (like the kernels; identical up to ~1e-7 fp noise — DESIGN.md)."""
+    See make_sharded_runner_2d for the ca_steps semantics."""
     iters = params.max_iters if n_iters is None else n_iters
     runner, sh = prepare_sharded_2d(
-        params, iters, mesh_shape, kernel=kernel, interpret=interpret,
-        ca_steps=ca_steps, collect_density=collect_density,
+        params, iters, mesh_shape, ca_steps=ca_steps,
+        collect_density=collect_density,
     )
     return execute_sharded(runner, sh, f0, obstacles, params)
 
@@ -1194,8 +632,6 @@ def prepare_sharded(
     n_iters: int,
     *,
     n_devices: int | None = None,
-    kernel: str = "jnp",
-    interpret: bool = False,
     ca_steps: int = 1,
     collect_density: bool = False,
     overlap: bool = False,
@@ -1207,64 +643,37 @@ def prepare_sharded(
     n = mesh.devices.size
     if params.ny % n:
         raise ValueError(f"ny={params.ny} not divisible by {n} devices")
-    if kernel == "auto":
-        kernel = resolve_shard_kernel(
-            params, n_devices=n, ca_steps=ca_steps
-        )
-    # the thin-slab gate must see the EFFECTIVE schedule, mirroring
-    # make_sharded_runner's stream normalization: explicit ca_steps=8
-    # with kernel='stream' is the same K=8 window schedule the default
-    # ca_steps=1 runs (gated by window_supported, ly >= K), while the
-    # stream debug fallback really does run the jnp CA path at K=8 and
-    # needs its 2K ghost-zone slab
-    eff_kernel, eff_ca = kernel, ca_steps
-    if kernel == "stream":
-        from advanced_hpc_lbm_tpu.ops import pallas_stream
-
-        if ca_steps in (1, pallas_stream.K):
-            eff_ca = pallas_stream.K
-            eff_kernel = "jnp" if collect_density else "stream"
-        # else: make_sharded_runner raises the actionable error below
-    if (
-        eff_kernel != "stream"
-        and eff_ca > 1
-        and params.ny // n < 2 * eff_ca
-    ):
+    if ca_steps > 1 and params.ny // n < 2 * ca_steps:
         raise ValueError(
             f"local slab ny/n={params.ny // n} too thin for "
-            f"ca_steps={eff_ca} ghost zones"
+            f"ca_steps={ca_steps} ghost zones"
         )
     return make_sharded_runner(
-        mesh, params, n_iters, kernel=kernel, interpret=interpret,
-        ca_steps=ca_steps, collect_density=collect_density,
-        overlap=overlap,
+        mesh, params, n_iters, ca_steps=ca_steps,
+        collect_density=collect_density, overlap=overlap,
     )
 
 
 def run_sharded(
-    f0: jax.Array,
+    f0: jax.Array | None,
     obstacles: jax.Array,
     params: LBMParams,
     *,
     n_iters: int | None = None,
     n_devices: int | None = None,
-    kernel: str = "jnp",
-    interpret: bool = False,
     ca_steps: int = 1,
     collect_density: bool = False,
     overlap: bool = False,
 ) -> tuple[jax.Array, ...]:
     """Execute the full loop sharded along y. Drop-in replacement for
     ops.fused.run_simulation (same outputs, same numerics up to fp
-    reduction order).  kernel="pallas" runs the Mosaic local kernel per
-    shard (TPU production path); ca_steps=K > 1 exchanges halos every K
-    steps (communication-avoiding ghost zones; composes with kernel="pallas" via the Mosaic CA window kernel when the window fits VMEM);
-    overlap=True issues halos before the interior compute (see
-    make_sharded_runner)."""
+    reduction order).  ``f0`` None starts from the equilibrium built in
+    place (initial_state_sharded).  ca_steps=K > 1 exchanges halos every
+    K steps (communication-avoiding ghost zones); overlap=True issues
+    halos before the interior compute (see make_sharded_runner)."""
     iters = params.max_iters if n_iters is None else n_iters
     runner, sh = prepare_sharded(
-        params, iters, n_devices=n_devices, kernel=kernel,
-        interpret=interpret, ca_steps=ca_steps,
+        params, iters, n_devices=n_devices, ca_steps=ca_steps,
         collect_density=collect_density, overlap=overlap,
     )
     return execute_sharded(runner, sh, f0, obstacles, params)

@@ -11,8 +11,8 @@ def make_y_mesh(n_devices: int | None = None) -> Mesh:
     """1-D mesh over the y (row) axis of the grid.
 
     The LBM stencil is 1-hop, so a 1-D ring decomposition along y gives each
-    device two neighbors and rides ICI for the halo exchange — the TPU
-    realization of the MPI row decomposition the reference left as a stub
+    device two neighbors for the halo exchange — the device-mesh form of
+    the MPI row decomposition the reference left as a stub
     (d2q9-bgk.c:208).
     """
     devs = jax.devices()
@@ -25,9 +25,9 @@ def make_y_mesh(n_devices: int | None = None) -> Mesh:
 def make_yx_mesh(my: int, mx: int) -> Mesh:
     """2-D mesh: rows sharded over ``my`` devices, columns over ``mx``.
 
-    Used when a 1-D split would leave slabs too thin (local_ny below the
-    8-row sublane granule) — the 2-D torus decomposition SURVEY.md section 5
-    anticipates.  Corner data for the diagonal speeds rides the two-phase
+    Used when a 1-D split would leave slabs too thin or too wide — the
+    2-D torus decomposition SURVEY.md section 5 anticipates.  Corner data
+    for the diagonal speeds rides the two-phase
     halo exchange (rows first, then columns of the row-extended array), so
     no diagonal sends are needed.
     """

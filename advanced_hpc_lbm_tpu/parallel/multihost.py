@@ -2,13 +2,12 @@
 
 The reference's Slurm scripts reserve multi-rank nodes
 (job_submit_d2q9-bgk:5 `--ntasks-per-node 14`, job_submit_array:5 `28`) —
-its MPI growth path.  The TPU realization is one JAX PROCESS per host of a
-pod slice (or per slice of a multi-slice DCN job), with
+its MPI growth path.  Here that is one JAX PROCESS per host, with
 ``jax.distributed.initialize`` forming the process group; after that,
 ``jax.devices()`` returns the GLOBAL device list, so the existing mesh
 builders (parallel/mesh.py) and shard_map runners (parallel/halo.py) work
-unchanged — XLA routes the ring ppermutes over ICI within a slice and DCN
-across slices.
+unchanged — XLA routes the ring ppermutes over NVLink within a host and
+the network across hosts.
 
 Detection ladder (first hit wins), mirroring how JAX's own launch
 integrations resolve the coordinator:
@@ -18,8 +17,6 @@ integrations resolve the coordinator:
 2. Slurm multi-task envs (``SLURM_NTASKS`` > 1): coordinator = first host
    of ``SLURM_STEP_NODELIST`` (via scontrol when available, else the
    literal first entry), process id = ``SLURM_PROCID``.
-3. Cloud TPU pod metadata: on a multi-host TPU VM JAX can auto-discover
-   everything — ``initialize()`` with no arguments.
 
 Single-process runs (the common case, and every test in this repo) never
 touch ``jax.distributed``: :func:`maybe_initialize` is a no-op unless the
@@ -61,8 +58,8 @@ def _first_slurm_host(nodelist: str) -> str:
 
 def detect(env=None) -> dict | None:
     """Inspect the environment for a multi-process launch.  Returns the
-    kwargs for ``jax.distributed.initialize`` (possibly empty — the TPU
-    auto-discovery form), or None for a single-process run."""
+    kwargs for ``jax.distributed.initialize``, or None for a
+    single-process run."""
     env = os.environ if env is None else env
 
     coord = env.get("JAX_COORDINATOR_ADDRESS")
@@ -87,13 +84,6 @@ def detect(env=None) -> dict | None:
             "num_processes": int(ntasks),
             "process_id": int(env.get("SLURM_PROCID", "0")),
         }
-
-    # Cloud TPU pod: the runtime exposes worker metadata; JAX's
-    # initialize() discovers it with no arguments.  Detect via the
-    # standard TPU-VM env hints without importing anything heavy.
-    hostnames = env.get("TPU_WORKER_HOSTNAMES", "")
-    if hostnames and len(hostnames.split(",")) > 1:
-        return {}
 
     return None
 

@@ -103,13 +103,30 @@ def check_files(
 def check_av_vels_only(
     ref_av_vels: str, av_vels: str, tolerance: float = 1.0
 ) -> DiffStats:
-    """For decks whose final_state golden was stripped from the mount
-    (check/256x256 and 1024x1024 — .MISSING_LARGE_BLOBS)."""
+    """The av_vels half of :func:`check_files`, for decks whose
+    final_state golden is not at hand."""
     av_ref = np.loadtxt(ref_av_vels, usecols=[1], ndmin=1)
     av_sim = np.loadtxt(av_vels, usecols=[1], ndmin=1)
     if av_ref.size != av_sim.size:
         raise ValueError("Different number of steps in av_vels files")
     return diff_values(av_ref, av_sim)
+
+
+def check_final_state_only(
+    ref_final_state: str, final_state: str
+) -> DiffStats:
+    """The final-state half of :func:`check_files`, for decks whose
+    av_vels golden is not at hand (goldens/ holds final states only)."""
+    fs_ref = np.loadtxt(ref_final_state, usecols=[0, 1, 5], ndmin=2)
+    fs_sim = np.loadtxt(final_state, usecols=[0, 1, 5], ndmin=2)
+    if fs_ref.shape != fs_sim.shape or np.any(fs_ref[:, 0:2] != fs_sim[:, 0:2]):
+        raise ValueError("Final state files coordinates were not the same")
+    fs = diff_values(fs_ref[:, 2], fs_sim[:, 2])
+    fs.coord = (
+        int(fs_sim[fs.max_diff_step, 0]),
+        int(fs_sim[fs.max_diff_step, 1]),
+    )
+    return fs
 
 
 def _main(argv: list[str]) -> int:

@@ -1,8 +1,7 @@
 """ctypes bridge to the native fast-I/O codec (native/fastio.c).
 
-The reference's only native artifact is its C binary; on the TPU stack the
-compute tier is XLA/Mosaic-compiled, so the native tier that remains
-host-side is I/O: formatting a 1024x1024 final_state.dat is ~1M printf
+The reference's only native artifact is its C binary; here the compute
+tier is XLA-compiled, so the native tier that remains host-side is I/O: formatting a 1024x1024 final_state.dat is ~1M printf
 lines (d2q9-bgk.c:2935-2980), which is worth a C codec.  The library is
 optional — every caller falls back to pure Python when it is absent.
 

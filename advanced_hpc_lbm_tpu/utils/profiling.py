@@ -1,11 +1,12 @@
-"""Performance instrumentation — the TPU analogue of the reference's
+"""Performance instrumentation — the counterpart of the reference's
 gprof/Intel-Advisor methodology (profile.txt, e000/ roofline project).
 
 Provides:
 * ``lups`` / ``roofline_report`` — throughput and HBM-roofline numbers for
   a measured run (the reference's measured single-core ceiling was
-  13.09 GB/s DRAM, e000/hs000/metrics.advisum:13-15; a v5e chip's HBM is
-  ~819 GB/s, which bounds this fp32 stencil at ~11 GLUPS);
+  13.09 GB/s DRAM, e000/hs000/metrics.advisum:13-15);
+* ``device_peak`` — published peaks by ``device_kind``; a device missing
+  from the table is an error, never a default;
 * ``trace`` — context manager around jax.profiler for capturing a device
   trace viewable in TensorBoard/Perfetto (wired to the CLI --profile flag).
 """
@@ -16,17 +17,37 @@ import contextlib
 import dataclasses
 import time
 
-# one step moves 9 fp32 planes in + out plus an int8 mask read
+# one step moves 9 fp32 planes in + out plus a 1-byte bool mask read
 BYTES_PER_CELL_STEP = 9 * 4 * 2 + 1
-# published HBM bandwidths (GB/s) by device kind substring
-_HBM_GBPS = {
-    "v5 lite": 819.0,
-    "v5e": 819.0,
-    "v4": 1228.0,
-    "v5p": 2765.0,
-    "v6": 1640.0,
-    "cpu": 50.0,
+
+
+@dataclasses.dataclass(frozen=True)
+class DevicePeak:
+    hbm_gbps: float  # published HBM bandwidth, GB/s
+    hbm_bytes: int  # device memory, bytes
+    source: str
+
+
+# Keyed by jax's ``device.device_kind``.
+PEAKS: dict[str, DevicePeak] = {
+    "NVIDIA H100 80GB HBM3": DevicePeak(
+        hbm_gbps=3350.0,
+        hbm_bytes=80 * 10**9,
+        source="NVIDIA H100 Tensor Core GPU data sheet, SXM5 (700 W)",
+    ),
 }
+
+
+def device_peak(device_kind: str) -> DevicePeak:
+    """The published peaks of ``device_kind``; raises for a device that is
+    not in :data:`PEAKS`."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device_kind {device_kind!r}; add it to "
+            "utils/profiling.PEAKS with its source"
+        ) from None
 
 
 @dataclasses.dataclass
@@ -50,40 +71,21 @@ class BenchResult:
         return self.nx * self.ny * self.iters * BYTES_PER_CELL_STEP / self.elapsed_s / 1e9
 
 
-def device_hbm_gbps() -> float | None:
-    import jax
-
-    kind = jax.devices()[0].device_kind.lower()
-    for key, bw in _HBM_GBPS.items():
-        if key in kind:
-            return bw
-    return None
-
-
-def roofline_report(result: BenchResult) -> str:
-    lines = [
+def roofline_report(result: BenchResult, device_kind: str) -> str:
+    """Throughput of ``result`` against the HBM roofline of the device
+    that measured it."""
+    peak = device_peak(device_kind)
+    ceiling = peak.hbm_gbps / BYTES_PER_CELL_STEP  # GLUPS
+    return "\n".join([
         f"grid {result.nx}x{result.ny}, {result.iters} iters in "
-        f"{result.elapsed_s:.3f} s",
+        f"{result.elapsed_s:.3f} s on {device_kind}",
         f"throughput: {result.glups:.3f} GLUPS ({result.mlups:.0f} MLUPS)",
-        f"effective HBM traffic (single-pass model): "
-        f"{result.effective_gbps:.0f} GB/s",
-    ]
-    peak = device_hbm_gbps()
-    if peak:
-        ceiling = peak / BYTES_PER_CELL_STEP  # GLUPS
-        lines.append(
-            f"HBM roofline: {peak:.0f} GB/s -> {ceiling:.1f} GLUPS ceiling; "
-            f"achieved {100 * result.glups / ceiling:.0f}% of roofline"
-        )
-        lines.append(
-            "note: nominal-BW model. Measured on this device (BENCH.md "
-            "probe series): working sets <= ~40 MB are VMEM-promoted "
-            "(the 'roofline' is then VMEM streaming, and >100% of the "
-            "nominal model is real), while 300+ MB states stream at the "
-            "big-array memcpy bound (~0.3-0.65x nominal); the K-step "
-            "backend trades compute for bytes exactly there."
-        )
-    return "\n".join(lines)
+        f"effective HBM traffic (single-pass model, "
+        f"{BYTES_PER_CELL_STEP} B/cell-step): {result.effective_gbps:.0f} GB/s",
+        f"HBM roofline: {peak.hbm_gbps:.0f} GB/s ({peak.source}) -> "
+        f"{ceiling:.1f} GLUPS ceiling; achieved "
+        f"{100 * result.glups / ceiling:.0f}% of roofline",
+    ])
 
 
 def measure(run_fn, nx: int, ny: int, iters: int) -> BenchResult:

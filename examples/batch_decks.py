@@ -12,7 +12,7 @@ multi-chip mesh the batch axis shards over devices with zero collectives
 
 import os
 
-# 8 virtual devices BEFORE jax initializes (real TPUs: delete these lines)
+# 8 virtual devices BEFORE jax initializes (real GPUs: delete these lines)
 os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "")
     + " --xla_force_host_platform_device_count=8"

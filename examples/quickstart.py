@@ -3,19 +3,21 @@
 
     python examples/quickstart.py [paramfile obstaclefile]
 
-Defaults to the reference 128x128 deck if mounted.
+Defaults to the repo's 64x64 smoke deck (decks/mini_64x64.*).
 """
 
+import os
 import sys
 
 import numpy as np
 
 from advanced_hpc_lbm_tpu import Simulation
 
-paramfile = sys.argv[1] if len(sys.argv) > 2 else "/root/reference/input_128x128.params"
-obstfile = sys.argv[2] if len(sys.argv) > 2 else "/root/reference/obstacles_128x128.dat"
+DECKS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "decks")
+paramfile = sys.argv[1] if len(sys.argv) > 2 else f"{DECKS}/mini_64x64.params"
+obstfile = sys.argv[2] if len(sys.argv) > 2 else f"{DECKS}/mini_64x64.obstacles.dat"
 
-# backend="auto" picks the fastest applicable kernel for the grid/device
+# backend="auto" is the XLA-fused step on whatever device JAX finds
 sim = Simulation.from_decks(paramfile, obstfile, backend="auto")
 print(f"grid {sim.params.nx}x{sim.params.ny}, {sim.params.max_iters} steps, "
       f"backend={sim.backend}")

@@ -21,7 +21,6 @@ echo "== fast tests =="
 python -m pytest tests/ -x -q -m "not slow"
 
 echo "OK: submission checks passed"
-echo "NOTE: on TPU hardware also run the perf regression gate:"
-echo "  make bench MATRIX=1        # python bench.py --matrix (512^2-8192^2, 15% band)"
-echo "  python bench.py --matrix --matrix-huge   # + the 12288^2/16384^2 tiers"
-echo "Each round's matrix is committed as BENCH_MATRIX_rNN.json (BENCH.md)."
+echo "NOTE: on a GPU host also run the smoke run and the GPU tests:"
+echo "  python chip_smoke.py"
+echo "  LBM_TESTS_ON_GPU=1 python -m pytest -m gpu tests/"

@@ -1,4 +1,4 @@
-/* Native fast-I/O codec for the TPU LBM engine.
+/* Native fast-I/O codec for the D2Q9-BGK LBM engine.
  *
  * Formats final_state.dat / av_vels.dat with the exact printf contracts of
  * the reference writer (d2q9-bgk.c:2978 "%d %d %.12E %.12E %.12E %.12E %d"

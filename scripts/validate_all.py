@@ -1,97 +1,96 @@
 #!/usr/bin/env python
-"""Run every reference deck end-to-end and validate against the shipped
-goldens — the full `make check` contract across the deck matrix
-(SURVEY.md section 4).  Prints one table row per deck and exits nonzero on
-any failure.
+"""Run the in-repo reference decks end to end through the CLI and check
+each against its golden final state (goldens/*.xz) at the reference
+checker's 1% tolerance (check/check.py), plus the reference's Reynolds
+number.  Prints one table row per deck and exits nonzero on any failure.
 
-Usage: python scripts/validate_all.py [--ref /root/reference] [--decks ...]
+Usage: python scripts/validate_all.py [--decks 256x256 1024x1024]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import lzma
-import os
+import re
 import shutil
 import sys
 import tempfile
-import time
+from pathlib import Path
 
-GOLDENS_DIR = os.path.join(os.path.dirname(__file__), "..", "goldens")
-
-
-def _final_state_golden(
-    ref_dir: str, deck: str, tmpdir: str
-) -> tuple[str | None, str]:
-    """The final_state golden for a deck and its provenance label:
-    ("<path>", "upstream") for the reference mount's own artifact,
-    ("<path>", "regen") for the repo-regenerated one (goldens/*.xz —
-    rebuilt from the reference's solver on THIS host, goldens/README.md;
-    a pass against it is not a pass against the upstream golden), or
-    (None, "av-only") when neither exists."""
-    mounted = os.path.join(ref_dir, "check", f"{deck}.final_state.dat")
-    if os.path.exists(mounted):
-        return mounted, "upstream"
-    packed = os.path.join(GOLDENS_DIR, f"{deck}.final_state.dat.xz")
-    if os.path.exists(packed):
-        out = os.path.join(tmpdir, f"{deck}.final_state.golden.dat")
-        with lzma.open(packed, "rb") as src, open(out, "wb") as dst:
-            shutil.copyfileobj(src, dst)
-        return out, "regen"
-    return None, "av-only"
-
-DECKS = ["128x128", "128x256", "256x256", "1024x1024"]
+REPO = Path(__file__).resolve().parents[1]
+DECKS = ("256x256", "1024x1024")
 # expected Reynolds numbers from the reference README (serial base build)
-EXPECTED_RE = {
-    "128x128": 9.751927,
-    "128x256": 37.150040,
-    "256x256": 10.051412,
-    "1024x1024": 3.375851,
-}
+EXPECTED_RE = {"256x256": 10.051412, "1024x1024": 3.375851}
+TOLERANCE = 1.0  # percent, check/check.py:19-24
+
+
+def deck_paths(deck: str) -> tuple[str, str]:
+    return (
+        str(REPO / "decks" / f"{deck}.params"),
+        str(REPO / "decks" / f"{deck}.obstacles.dat"),
+    )
+
+
+def unpack_golden(deck: str, out_dir: str) -> str:
+    """Decompress goldens/<deck>.final_state.dat.xz into ``out_dir``."""
+    out = str(Path(out_dir) / f"{deck}.golden_final_state.dat")
+    packed = REPO / "goldens" / f"{deck}.final_state.dat.xz"
+    with lzma.open(packed, "rb") as src, open(out, "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    return out
+
+
+def run_deck(deck: str, out_dir: str, extra: tuple[str, ...] = ()) -> dict:
+    """One deck through ``cli.main`` (in this process), checked against its
+    golden.  Returns the Reynolds number, the four timers, the final-state
+    max difference in percent and the verdict."""
+    from advanced_hpc_lbm_tpu import cli
+    from advanced_hpc_lbm_tpu.utils import check as lbm_check
+
+    params, obstacles = deck_paths(deck)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([params, obstacles, "--out-dir", out_dir, *extra])
+    out = buf.getvalue()
+    if rc != 0:
+        raise RuntimeError(f"{deck}: the CLI exited {rc}\n{out}")
+    reynolds = float(re.search(r"Reynolds number:\s+(\S+)", out).group(1))
+    timers = {
+        name.lower(): float(sec)
+        for name, sec in re.findall(r"Elapsed (\w+) time:\s+(\S+)", out)
+    }
+    fs = lbm_check.check_final_state_only(
+        unpack_golden(deck, out_dir), str(Path(out_dir) / "final_state.dat")
+    )
+    re_err = abs(reynolds - EXPECTED_RE[deck]) / EXPECTED_RE[deck]
+    return {
+        "deck": deck,
+        "reynolds": reynolds,
+        "reynolds_expected": EXPECTED_RE[deck],
+        "final_state_max_diff_pct": abs(fs.max_diff_pcnt),
+        "timers": timers,
+        "passed": fs.passed(TOLERANCE) and re_err < TOLERANCE / 100,
+    }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--ref", default="/root/reference")
-    ap.add_argument("--decks", nargs="*", default=DECKS)
-    ap.add_argument("--backend", default="auto")
+    ap.add_argument("--decks", nargs="*", default=list(DECKS))
     args = ap.parse_args(argv)
 
-    from advanced_hpc_lbm_tpu.models.d2q9_bgk import Simulation
-    from advanced_hpc_lbm_tpu.utils import cache, check as lbm_check
-
-    cache.enable()
     failures = 0
-    print(f"{'deck':>10} {'backend':>9} {'compute_s':>9} {'Re':>14} "
-          f"{'av max%':>9} {'fs max%':>9} {'golden':>8} {'verdict':>8}")
+    print(f"{'deck':>10} {'compute_s':>10} {'Re':>14} {'fs max%':>9} "
+          f"{'verdict':>8}")
     for deck in args.decks:
-        params_path = os.path.join(args.ref, f"input_{deck}.params")
-        obst_path = os.path.join(args.ref, f"obstacles_{deck}.dat")
-        av_golden = os.path.join(args.ref, "check", f"{deck}.av_vels.dat")
-
-        sim = Simulation.from_decks(params_path, obst_path, backend=args.backend)
-        tic = time.time()
-        res = sim.run()
-        elapsed = time.time() - tic
         with tempfile.TemporaryDirectory() as td:
-            fs, av = res.write(td)
-            fs_golden, golden_src = _final_state_golden(args.ref, deck, td)
-            if fs_golden is not None:
-                r = lbm_check.check_files(av_golden, fs_golden, av, fs)
-                av_pct = abs(r.av_vels.max_diff_pcnt)
-                fs_pct = abs(r.final_state.max_diff_pcnt)
-                ok = r.passed
-            else:
-                # no mounted golden and no regenerated one (goldens/)
-                d = lbm_check.check_av_vels_only(av_golden, av)
-                av_pct, fs_pct, ok = abs(d.max_diff_pcnt), float("nan"), d.passed(1.0)
-        re_ok = abs(res.reynolds - EXPECTED_RE[deck]) / EXPECTED_RE[deck] < 0.01
-        ok = ok and re_ok
-        failures += not ok
+            row = run_deck(deck, td)
+        failures += not row["passed"]
         print(
-            f"{deck:>10} {sim.backend:>9} {elapsed:9.2f} {res.reynolds:14.6E} "
-            f"{av_pct:9.4f} {fs_pct:9.4f} {golden_src:>8} "
-            f"{'PASS' if ok else 'FAIL':>8}"
+            f"{deck:>10} {row['timers']['compute']:10.3f} "
+            f"{row['reynolds']:14.6E} {row['final_state_max_diff_pct']:9.4f} "
+            f"{'PASS' if row['passed'] else 'FAIL':>8}"
         )
     return 1 if failures else 0
 

@@ -81,7 +81,7 @@ def test_cli_mesh_and_ca_steps(tmp_path):
     outs = {}
     for name, extra in (
         ("plain", []),
-        ("mesh", ["--mesh", "2x2", "--shard-kernel", "jnp"]),
+        ("mesh", ["--mesh", "2x2"]),
         ("ca", ["--devices", "4", "--ca-steps", "2"]),
     ):
         d = tmp_path / name

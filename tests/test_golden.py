@@ -1,105 +1,50 @@
-"""Golden-output tests against the reference's shipped check/ files.
+"""Golden-output tests against the in-repo reference goldens.
 
-The reference validates exclusively end-to-end (SURVEY.md section 4); these
-tests reproduce that contract at two costs: a fast 100-step prefix
-comparison (runs on CPU in seconds) and a full 40k-step 128x128 run marked
-slow (the exact `make check` contract, Makefile:19-20).
+The reference validates exclusively end-to-end (SURVEY.md section 4); the
+repo keeps the reference solver's final states for the 256x256 (80 000
+steps) and 1024x1024 (20 000 steps) decks (goldens/, decks/).  The full
+256x256 run is the exact `make check` contract on its final state — slow
+on a CPU, so marked slow; the card runs both decks in chip_smoke.py.
 """
 
-import numpy as np
+import lzma
+import shutil
+
 import pytest
 
 from advanced_hpc_lbm_tpu.models.d2q9_bgk import Simulation
 from advanced_hpc_lbm_tpu.utils import check as lbm_check
-from advanced_hpc_lbm_tpu.utils import io as lbm_io
 
-from conftest import REFERENCE_DIR, requires_reference
+from conftest import DECKS_DIR, GOLDENS_DIR
 
-
-def rel_pcnt(ref, sim):
-    diff = ref - sim
-    return 100.0 * diff / (ref - diff)
+# the reference README's Reynolds number for the 256x256 deck
+RE_256 = 10.051412
 
 
-@requires_reference
-class TestGoldenPrefix:
-    """First-100-steps av_vels comparison — catches any semantic slip
-    (wrong guard, wrong row, off-by-one in streaming) immediately; fp32
-    drift is ~1e-5 % at this horizon."""
-
-    @pytest.mark.parametrize("deck", ["128x128", "128x256"])
-    def test_av_vels_prefix(self, deck):
-        sim = Simulation.from_decks(
-            f"{REFERENCE_DIR}/input_{deck}.params",
-            f"{REFERENCE_DIR}/obstacles_{deck}.dat",
-        )
-        n = 100
-        res = sim.run(n_iters=n)
-        golden = np.loadtxt(
-            f"{REFERENCE_DIR}/check/{deck}.av_vels.dat", usecols=[1], max_rows=n
-        )
-        pc = rel_pcnt(golden, res.av_vels.astype(np.float64))
-        assert np.all(np.isfinite(pc))
-        assert np.max(np.abs(pc)) < 0.01, f"max prefix diff {np.max(np.abs(pc))}%"
-
-    def test_pipeline_backend_prefix(self):
-        """The legacy-granularity pipeline backend hits the same goldens."""
-        sim = Simulation.from_decks(
-            f"{REFERENCE_DIR}/input_128x128.params",
-            f"{REFERENCE_DIR}/obstacles_128x128.dat",
-            backend="pipeline",
-        )
-        res = sim.run(n_iters=50)
-        golden = np.loadtxt(
-            f"{REFERENCE_DIR}/check/128x128.av_vels.dat", usecols=[1], max_rows=50
-        )
-        pc = rel_pcnt(golden, res.av_vels.astype(np.float64))
-        assert np.max(np.abs(pc)) < 0.01
+def _golden(tmp_path, deck):
+    out = tmp_path / f"{deck}.golden.dat"
+    with lzma.open(f"{GOLDENS_DIR}/{deck}.final_state.dat.xz", "rb") as src:
+        with open(out, "wb") as dst:
+            shutil.copyfileobj(src, dst)
+    return str(out)
 
 
-@requires_reference
 @pytest.mark.slow
 class TestGoldenFull:
-    def test_128x128_full_check(self, tmp_path):
-        """The complete `make check` contract on the smallest deck."""
+    @pytest.mark.parametrize("devices", [None, 8])
+    def test_256x256_full_check(self, tmp_path, devices):
+        """The final-state `make check` contract on the 256x256 deck, on
+        one device and on the 8-device halo-exchanged decomposition (the
+        psum'd reduction's drift must stay inside the 1% contract too)."""
         sim = Simulation.from_decks(
-            f"{REFERENCE_DIR}/input_128x128.params",
-            f"{REFERENCE_DIR}/obstacles_128x128.dat",
+            f"{DECKS_DIR}/256x256.params",
+            f"{DECKS_DIR}/256x256.obstacles.dat",
         )
-        res = sim.run()
-        fs, av = res.write(tmp_path)
-        result = lbm_check.check_files(
-            f"{REFERENCE_DIR}/check/128x128.av_vels.dat",
-            f"{REFERENCE_DIR}/check/128x128.final_state.dat",
-            av,
-            fs,
-        )
-        assert result.passed, (result.av_vels, result.final_state)
-        # README.md:98 expected Reynolds for this deck
-        assert abs(res.reynolds - 9.751927) / 9.751927 < 0.01
-
-    def test_128x128_full_check_sharded(self, tmp_path):
-        """The sharded full-horizon golden (VERDICT round-2 item 5): the
-        halo-exchanged 8-device decomposition through the official checker
-        at the reference's real acceptance horizon (40k steps,
-        check/128x128.av_vels.dat) — proves accumulated psum-reduction
-        drift stays inside the 1% contract, not just transitively via the
-        short-horizon equivalence tests."""
-        sim = Simulation.from_decks(
-            f"{REFERENCE_DIR}/input_128x128.params",
-            f"{REFERENCE_DIR}/obstacles_128x128.dat",
-            backend="sharded",
-        )
-        res = sim.run(devices=8, shard_kernel="jnp")
-        fs, av = res.write(tmp_path)
-        result = lbm_check.check_files(
-            f"{REFERENCE_DIR}/check/128x128.av_vels.dat",
-            f"{REFERENCE_DIR}/check/128x128.final_state.dat",
-            av,
-            fs,
-        )
-        assert result.passed, (result.av_vels, result.final_state)
-        assert abs(res.reynolds - 9.751927) / 9.751927 < 0.01
+        res = sim.run(devices=devices)
+        fs, _ = res.write(tmp_path)
+        stats = lbm_check.check_final_state_only(_golden(tmp_path, "256x256"), fs)
+        assert stats.passed(1.0), stats
+        assert abs(res.reynolds - RE_256) / RE_256 < 0.01
 
 
 class TestChecker:

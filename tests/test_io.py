@@ -8,14 +8,13 @@ from advanced_hpc_lbm_tpu.params import LBMParams
 from advanced_hpc_lbm_tpu.utils import io as lbm_io
 from advanced_hpc_lbm_tpu.utils import native
 
-from conftest import REFERENCE_DIR, requires_reference
+from conftest import DECKS_DIR, GOLDENS_DIR
 
 
 class TestParams:
-    @requires_reference
     def test_load_reference_deck(self):
-        p = lbm_io.load_params(f"{REFERENCE_DIR}/input_128x128.params")
-        assert (p.nx, p.ny, p.max_iters, p.reynolds_dim) == (128, 128, 40000, 10)
+        p = lbm_io.load_params(f"{DECKS_DIR}/256x256.params")
+        assert (p.nx, p.ny, p.max_iters, p.reynolds_dim) == (256, 256, 80000, 10)
         assert (p.density, p.accel, p.omega) == (0.1, 0.005, 1.85)
 
     def test_bad_deck(self, tmp_path):
@@ -32,11 +31,10 @@ class TestParams:
 
 
 class TestObstacles:
-    @requires_reference
     def test_load_reference_obstacles(self):
-        p = lbm_io.load_params(f"{REFERENCE_DIR}/input_128x128.params")
-        mask = lbm_io.load_obstacles(f"{REFERENCE_DIR}/obstacles_128x128.dat", p)
-        # 128x128 deck is a closed box: full top/bottom rows + side columns
+        p = lbm_io.load_params(f"{DECKS_DIR}/256x256.params")
+        mask = lbm_io.load_obstacles(f"{DECKS_DIR}/256x256.obstacles.dat", p)
+        # 256x256 deck is a closed box: full top/bottom rows + side columns
         assert mask[0].all() and mask[-1].all()
         assert mask[:, 0].all() and mask[:, -1].all()
         assert not mask[1:-1, 1:-1].any()
@@ -138,15 +136,18 @@ class TestWriters:
         native.write_av_vels(c_av, av)
         assert py_av.read_text() == c_av.read_text()
 
-    @requires_reference
     def test_header_matches_golden_format(self, tmp_path):
         """Our initial-state writer output must be parseable by the same
-        loadtxt contract as the goldens and line up coordinate-wise."""
-        p = lbm_io.load_params(f"{REFERENCE_DIR}/input_128x128.params")
-        mask = lbm_io.load_obstacles(f"{REFERENCE_DIR}/obstacles_128x128.dat", p)
+        loadtxt contract as the goldens and line up coordinate-wise —
+        obstacle-column quirk included."""
+        import lzma
+
+        p = lbm_io.load_params(f"{DECKS_DIR}/256x256.params")
+        mask = lbm_io.load_obstacles(f"{DECKS_DIR}/256x256.obstacles.dat", p)
         f = np.asarray(reference.initial_state(p))
         path = tmp_path / "final_state.dat"
         lbm_io.write_final_state(path, f, mask, p)
-        ours = np.loadtxt(path, usecols=[0, 1, 5])
-        golden = np.loadtxt(f"{REFERENCE_DIR}/check/128x128.final_state.dat", usecols=[0, 1, 5])
-        np.testing.assert_array_equal(ours[:, :2], golden[:, :2])
+        ours = np.loadtxt(path, usecols=[0, 1, 6])
+        with lzma.open(f"{GOLDENS_DIR}/256x256.final_state.dat.xz", "rt") as fh:
+            golden = np.loadtxt(fh, usecols=[0, 1, 6])
+        np.testing.assert_array_equal(ours, golden)

@@ -1,8 +1,8 @@
 """Multi-host bootstrap (VERDICT round-4 missing #1 / next-round item 3).
 
-The reference reserves multi-rank nodes (job_submit_d2q9-bgk:5); the TPU
-answer is one JAX process per pod-slice host with jax.distributed forming
-the process group.  No second host exists here, so these tests cover the
+The reference reserves multi-rank nodes (job_submit_d2q9-bgk:5); here the
+answer is one JAX process per host with jax.distributed forming the
+process group.  No second host exists here, so these tests cover the
 pure detection ladder with mocked environments, the idempotent no-op on
 single-process environments, and the single-process behavior of the
 multi-host-safe put/fetch helpers (which the existing sharded tests
@@ -42,21 +42,14 @@ class TestDetect:
         kw = multihost.detect({
             "SLURM_NTASKS": "4",
             "SLURM_PROCID": "3",
-            "SLURM_STEP_NODELIST": "tpu-node[07-10]",
+            "SLURM_STEP_NODELIST": "gpu-node[07-10]",
         })
-        assert kw["coordinator_address"].startswith("tpu-node07:")
+        assert kw["coordinator_address"].startswith("gpu-node07:")
         assert kw["num_processes"] == 4 and kw["process_id"] == 3
 
     def test_slurm_single_task_is_single_process(self):
         # the repo's own job script reserves --ntasks-per-node 1
         assert multihost.detect({"SLURM_NTASKS": "1"}) is None
-
-    def test_tpu_pod_metadata_autodiscovers(self):
-        kw = multihost.detect({"TPU_WORKER_HOSTNAMES": "w0,w1,w2,w3"})
-        assert kw == {}  # initialize() with no args = TPU auto-discovery
-
-    def test_tpu_single_worker_is_single_process(self):
-        assert multihost.detect({"TPU_WORKER_HOSTNAMES": "w0"}) is None
 
 
 class TestNodelist:
@@ -64,7 +57,7 @@ class TestNodelist:
         assert multihost._first_slurm_host("n[3-7,9]") == "n3"
 
     def test_bracket_list(self):
-        assert multihost._first_slurm_host("tpu[12,15]") == "tpu12"
+        assert multihost._first_slurm_host("gpu[12,15]") == "gpu12"
 
     def test_plain_list(self):
         assert multihost._first_slurm_host("alpha,beta") == "alpha"

@@ -191,7 +191,7 @@ class TestFusedStep:
 class TestDonationSafety:
     def test_donated_buffer_run_matches_fresh(self, small_params, small_obstacles):
         """The production path donates the state buffer into the scan (the
-        TPU analogue of the reference's pointer swap, d2q9-bgk.c:190); a
+        analogue of the reference's pointer swap, d2q9-bgk.c:190); a
         bad aliasing choice would corrupt the trajectory.  Compare a
         donated run against an undonated one."""
         import jax

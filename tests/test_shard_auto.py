@@ -1,13 +1,7 @@
-"""The sharded path's auto kernel ladder (VERDICT round-4 item 1).
-
-``shard_kernel="auto"`` (the new default) must pick the measured-best
-Mosaic kernel for TPU-shaped slabs — mirroring the single-chip auto ladder
-(models/d2q9_bgk._resolve_backend) — while CPU / odd shapes / explicit
-overrides keep their existing behavior.  The resolver is a pure function
-of (slab shape, schedule, platform), so the TPU decisions are unit-tested
-directly via ``on_tpu=True``; the end-to-end defaults run on the virtual
-CPU mesh (where auto resolves to jnp) and must equal the explicit-jnp run
-bitwise.
+"""The sharded path as a user reaches it: ``Simulation.run(devices=N)``
+and ``halo.run_sharded_2d`` run the XLA-fused local step, start from the
+equilibrium built in place per shard, and must equal the direct
+halo-runner call bitwise (one program, two entry points).
 """
 
 import jax.numpy as jnp
@@ -15,7 +9,7 @@ import numpy as np
 import pytest
 
 from advanced_hpc_lbm_tpu.models.d2q9_bgk import Simulation
-from advanced_hpc_lbm_tpu.ops import pallas_local, pallas_stream
+from advanced_hpc_lbm_tpu.ops import reference
 from advanced_hpc_lbm_tpu.parallel import halo
 from advanced_hpc_lbm_tpu.params import LBMParams
 
@@ -27,110 +21,27 @@ def _params(ny, nx, iters=4):
     )
 
 
-class TestResolver:
-    def test_cpu_resolves_jnp(self):
-        # conftest forces the CPU backend: the platform probe must say no
-        assert (
-            halo.resolve_shard_kernel(_params(64, 128), n_devices=8)
-            == "jnp"
-        )
-
-    def test_small_slab_picks_pallas(self, monkeypatch):
-        # 8 shards of 1024^2 -> 128x1024 slabs: at/below the HBM-traffic
-        # floor, the 1-step VMEM-window kernel (the single-chip analogue
-        # picks 'pallas' there too)
-        monkeypatch.setattr(pallas_local, "supported", lambda ly, nx: True)
-        assert (
-            halo.resolve_shard_kernel(
-                _params(1024, 1024), n_devices=8, on_tpu=True
-            )
-            == "pallas"
-        )
-
-    def test_dma_bound_slab_picks_stream(self):
-        # 8 shards of 16384^2 -> 2048x16384 slabs: DMA-bound regime, the
-        # K=8 streaming window kernel is the measured winner
-        assert pallas_stream.window_supported(2048, 16384)
-        assert (
-            halo.resolve_shard_kernel(
-                _params(16384, 16384), n_devices=8, on_tpu=True
-            )
-            == "stream"
-        )
-
-    def test_incompatible_ca_steps_opts_out_of_stream(self, monkeypatch):
-        # stream fixes the schedule at K=8; an explicit ca_steps=4 must
-        # fall through to the CA-capable pallas kernel, not raise
-        monkeypatch.setattr(pallas_local, "supported", lambda ly, nx: True)
-        monkeypatch.setattr(
-            pallas_local, "ca_supported", lambda ly, nx, k: True
-        )
-        assert (
-            halo.resolve_shard_kernel(
-                _params(16384, 16384), n_devices=8, ca_steps=4, on_tpu=True
-            )
-            == "pallas"
-        )
-
-    def test_2d_mesh_dma_bound_picks_stream(self):
-        # (2, 4) torus on 16384x32768 -> 8192x8192 blocks
-        assert pallas_stream.window_supported_2d(8192, 8192)
-        assert (
-            halo.resolve_shard_kernel(
-                _params(16384, 32768), mesh_shape=(2, 4), on_tpu=True
-            )
-            == "stream"
-        )
-
-    def test_2d_mesh_ca_steps_picks_jnp(self):
-        # the Mosaic CA window kernel is 1-D-only; auto must not pick a
-        # kernel the 2-D runner would reject
-        assert (
-            halo.resolve_shard_kernel(
-                _params(64, 256), mesh_shape=(2, 2), ca_steps=2, on_tpu=True
-            )
-            == "jnp"
-        )
-
-    def test_odd_shape_resolves_jnp(self):
-        assert (
-            halo.resolve_shard_kernel(
-                _params(100, 100), n_devices=4, on_tpu=True
-            )
-            == "jnp"
-        )
-
-    def test_indivisible_resolves_jnp(self):
-        # prepare_* raises the real error; the resolver just stays neutral
-        assert (
-            halo.resolve_shard_kernel(
-                _params(64, 128), n_devices=3, on_tpu=True
-            )
-            == "jnp"
-        )
-
-
 @pytest.mark.parametrize("n_devices", [2, 4, 8])
 def test_model_default_auto_matches_explicit_jnp(n_devices):
-    """Simulation.run(devices=N) with NO shard_kernel flag (the new
-    default 'auto') must run — and on the CPU mesh resolve to the same
-    jnp local step an explicit override selects, bitwise."""
+    """Simulation.run(devices=N) with no further flags must run, and equal
+    the halo runner called directly from an explicit f0, bitwise."""
     params = _params(32, 128, iters=5)
     mask = np.zeros((params.ny, params.nx), dtype=bool)
     mask[0] = mask[-1] = True
-    r_auto = Simulation(params, mask, backend="sharded").run(
+    r_model = Simulation(params, mask, backend="sharded").run(
         devices=n_devices
     )
-    r_jnp = Simulation(params, mask, backend="sharded").run(
-        devices=n_devices, shard_kernel="jnp"
+    f_direct, av_direct = halo.run_sharded(
+        reference.initial_state(params), jnp.asarray(mask), params,
+        n_devices=n_devices,
     )
-    np.testing.assert_array_equal(r_auto.av_vels, r_jnp.av_vels)
-    np.testing.assert_array_equal(r_auto.f_final, r_jnp.f_final)
+    np.testing.assert_array_equal(r_model.av_vels, np.asarray(av_direct))
+    np.testing.assert_array_equal(r_model.f_final, np.asarray(f_direct))
 
 
-def test_run_sharded_auto_2d(monkeypatch):
-    """kernel='auto' flows through the 2-D prepare path too."""
-    from advanced_hpc_lbm_tpu.ops import fused, reference
+def test_run_sharded_auto_2d():
+    """The 2-D prepare path, started from the in-place equilibrium."""
+    from advanced_hpc_lbm_tpu.ops import fused
 
     params = _params(16, 256, iters=3)
     mask = np.zeros((params.ny, params.nx), dtype=bool)
@@ -139,11 +50,28 @@ def test_run_sharded_auto_2d(monkeypatch):
     f_ref, av_ref = fused.run_simulation(
         reference.initial_state(params), obst, params, n_iters=3
     )
-    f_a, av_a = halo.run_sharded_2d(
-        reference.initial_state(params), obst, params, (2, 2),
-        kernel="auto",
-    )
+    f_a, av_a = halo.run_sharded_2d(None, obst, params, (2, 2))
     np.testing.assert_allclose(
         np.asarray(f_a), np.asarray(f_ref), rtol=1e-6, atol=1e-9
     )
     np.testing.assert_allclose(np.asarray(av_a), np.asarray(av_ref), rtol=5e-4)
+
+
+@pytest.mark.parametrize("mesh_shape", [None, (2, 2), (4, 2)])
+def test_initial_state_sharded_equals_reference(mesh_shape):
+    """The in-place equilibrium is the reference initial state, laid out in
+    the runner's sharding with one block per device."""
+    params = _params(16, 32)
+    if mesh_shape is None:
+        _, sh = halo.prepare_sharded(params, 1, n_devices=4)
+    else:
+        _, sh = halo.prepare_sharded_2d(params, 1, mesh_shape)
+    f0 = halo.initial_state_sharded(params, sh["f"])
+    assert f0.sharding == sh["f"]
+    np.testing.assert_array_equal(
+        np.asarray(f0), np.asarray(reference.initial_state(params))
+    )
+    n = 4 if mesh_shape is None else mesh_shape[0] * mesh_shape[1]
+    assert len(f0.addressable_shards) == n
+    for shard in f0.addressable_shards:
+        assert shard.data.size == f0.size // n

@@ -1,6 +1,7 @@
 """Tests for the aux utilities: viz, profiling, timers."""
 
 import numpy as np
+import pytest
 
 from advanced_hpc_lbm_tpu.utils import profiling, timers, viz
 
@@ -48,8 +49,33 @@ class TestProfiling:
 
     def test_roofline_report_strings(self):
         r = profiling.BenchResult(nx=128, ny=128, iters=100, elapsed_s=0.01)
-        text = profiling.roofline_report(r)
+        text = profiling.roofline_report(r, "NVIDIA H100 80GB HBM3")
         assert "GLUPS" in text and "HBM" in text
+        assert "3350 GB/s" in text and "data sheet" in text
+
+
+class TestPeaks:
+    def test_h100_sxm_entry(self):
+        peak = profiling.device_peak("NVIDIA H100 80GB HBM3")
+        assert peak.hbm_gbps == 3350.0
+        assert peak.hbm_bytes == 80 * 10**9
+        assert "H100" in peak.source
+
+    def test_roofline_ceiling_is_bandwidth_over_bytes(self):
+        r = profiling.BenchResult(nx=1024, ny=1024, iters=1, elapsed_s=1.0)
+        text = profiling.roofline_report(r, "NVIDIA H100 80GB HBM3")
+        ceiling = 3350.0 / profiling.BYTES_PER_CELL_STEP
+        assert f"{ceiling:.1f} GLUPS ceiling" in text
+
+    @pytest.mark.parametrize(
+        "kind", ["cpu", "Tesla V100-SXM2-16GB", "NVIDIA A100-SXM4-80GB", ""]
+    )
+    def test_unknown_device_raises(self, kind):
+        with pytest.raises(ValueError, match="no published peaks"):
+            profiling.device_peak(kind)
+        r = profiling.BenchResult(nx=8, ny=8, iters=1, elapsed_s=1.0)
+        with pytest.raises(ValueError):
+            profiling.roofline_report(r, kind)
 
 
 class TestTimers:

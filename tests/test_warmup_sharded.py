@@ -28,7 +28,7 @@ def test_warmup_caches_sharded_runner_and_run_reuses_it(deck):
     params, mask = deck
     sim = Simulation(params, mask, backend="sharded")
     sim.warmup(devices=4)
-    key = ("sharded", params.max_iters, 4, "jnp", None, 1, False)
+    key = ("sharded", params.max_iters, 4, None, 1, False)
     assert key in sim._compiled
     runner_before = sim._compiled[key][0]
     res = sim.run(devices=4)
@@ -54,10 +54,3 @@ def test_ca_steps_without_sharding_raises(deck):
     sim = Simulation(params, mask, backend="fused")
     with pytest.raises(ValueError, match="sharded"):
         sim.run(ca_steps=4)
-
-
-def test_ca_steps_2d_pallas_raises(deck):
-    params, mask = deck
-    sim = Simulation(params, mask, backend="sharded")
-    with pytest.raises(ValueError, match="2-D"):
-        sim.run(mesh=(2, 2), ca_steps=2, shard_kernel="pallas")
